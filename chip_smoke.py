@@ -1,0 +1,421 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--out REPORT.json]
+
+Drives the port's main path on the card and holds every Hopper kernel of
+that path against its plain PyTorch version:
+
+ 1. device   - needs CUDA; prints the card's name and power limit;
+ 2. build    - builds the router-step, popcount and BT-counter kernels from
+               ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+ 3. kernels  - each kernel == its plain version, exactly: popcount on 2^20
+               words, the BT counter on (4097, 16) words, the router step
+               over 512 cycles of a synthetic 8x8 batch (all 13 state leaves
+               after every 128-cycle chunk; the FIFO's phantom router row
+               excluded);
+ 4. no-NoC   - the paper's Tab. I path: the trained LeNet's weight stream
+               under O0 and O1 (stable, pattern), float32 and fixed8, BT
+               measured through the BT-counter kernel;
+ 5. main     - ``run_sweep`` on the trained LeNet with one glyph image at
+               full width (every packet of the inference, streamed) over
+               4x4_mc2, 8x8_mc4, 8x8_mc8 x float32/fixed8 x stable/pattern x
+               O0/O1/O2, drained through the router kernel;
+ 6. parity   - the pinned-budget sweep (8 packets per layer, chunk 128)
+               through the kernel and through the plain step: equal rows;
+ 7. launches - every kernel launched at least once by phases 4-5 (counts
+               reset just before them);
+ 8. timing   - each kernel at the main path's shapes beside its plain
+               version and its bound on this card.
+
+Prints one JSON line describing the kernels, then the card's name and power
+limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
+phase exits non-zero before that line. The detailed report (every row and
+timing) goes to ``--out`` (default ``build/chip_smoke.json``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+CKPT = os.path.join(REPO, "experiments", "weights", "lenet", "step_000000400")
+MESHES = ("4x4_mc2", "8x8_mc4", "8x8_mc8")
+AXES = dict(meshes=MESHES, transforms=("O0", "O1", "O2"),
+            tiebreaks=("stable", "pattern"), precisions=("float32", "fixed8"),
+            models=("lenet",))
+PINNED = dict(max_packets_per_layer=8, chunk=128)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
+# and the non-tensor 32-bit rate, used for 32-bit integer ALU work too.
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+
+
+def fail(msg: str, code: int = 1):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(code)
+
+
+class Phase:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            print(f"[{self.name}] ok {time.perf_counter() - self.t0:.3f} s",
+                  flush=True)
+        return False
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, setup=None) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA events,
+    after one warm-up); ``setup`` runs before each, outside the timing."""
+    import torch
+    if setup:
+        setup()
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        if setup:
+            setup()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def synthetic_traffic(cfg, batch: int, packets: int, seed: int):
+    import torch
+    from repro_torch.noc.traffic import TrafficAssembler
+    rng = np.random.default_rng(seed)
+    asm = TrafficAssembler([(packets, 5)], cfg, num_variants=batch,
+                           device="cuda")
+    w = rng.integers(0, 2**32, (batch, packets, 5, cfg.lanes),
+                     dtype=np.uint64).astype(np.uint32)
+    asm.add_chunk(0, 0, torch.from_numpy(w.view(np.int32)).cuda())
+    return asm.finish()
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default=os.path.join(REPO, "build",
+                                                      "chip_smoke.json"),
+                        help="where to write the detailed JSON report")
+    args = parser.parse_args()
+    import torch
+
+    with Phase("device"):
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is false: this smoke test needs "
+                 "a CUDA card", code=2)
+        card = card_line()
+        kind = torch.cuda.get_device_name(0)
+        print(f"card: {card} | torch {torch.__version__} cuda "
+              f"{torch.version.cuda} | {kind}", flush=True)
+
+    from repro_torch.core import flits, wire
+    from repro_torch.core.bits import words32
+    from repro_torch.data import glyph_batch
+    from repro_torch.kernels import bt_count, ops, popcount, ref, router_step
+    from repro_torch.models import LeNet, load_checkpoint
+    from repro_torch.noc import SweepGrid, run_sweep, sim
+    from repro_torch.noc.topology import mesh_by_name
+    from repro_torch.quant import quantize_fixed8
+
+    with Phase("build"):
+        times = ops.build_all()
+        for k in ops.KERNELS:
+            regs = [ln.strip() for ln in k.build_log.splitlines()
+                    if "registers" in ln or "smem" in ln]
+            print(f"  {k.name}: built in {times[k.name]:.1f} s "
+                  f"{' | '.join(regs)}", flush=True)
+
+    report = {"card": card, "kind": kind}
+    with Phase("kernels"):
+        rng = np.random.default_rng(0)
+        w = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+        w[:4] = [0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF]
+        x = torch.from_numpy(w.view(np.int32)).cuda()
+        got, want = popcount.popcount_words(x), ref.popcount_ref(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail("popcount kernel != plain popcount")
+        if int(got[2]) != 1 or int(got[1]) != 32:
+            fail("popcount kernel miscounts bit-31 words")
+        words = torch.from_numpy(rng.integers(0, 2**32, (4097, 16),
+                                              dtype=np.uint64)
+                                 .astype(np.uint32).view(np.int32)).cuda()
+        if not torch.equal(bt_count.bt_boundaries(words),
+                           ref.bt_boundaries_ref(words)):
+            fail("BT-counter kernel != plain BT counter")
+        cfg = mesh_by_name("8x8_mc4")
+        key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
+        t = synthetic_traffic(cfg, batch=6, packets=400, seed=1)
+        wr = sim.fuse_traffic(t)
+        mc = torch.as_tensor(np.broadcast_to(
+            np.asarray(cfg.mc_nodes, np.int32), (6, cfg.num_mcs)).copy(),
+            device="cuda")
+        a = sim.make_state(cfg, cfg.num_mcs, batch=6, device="cuda")
+        b = sim.SimState(*(leaf.clone() for leaf in a))
+        for chunk_i in range(4):
+            a = router_step.router_step(a, wr, mc, 128, key, True)
+            b = ref.router_step_ref(b, wr, mc, 128, key, True)
+            torch.cuda.synchronize()
+            for name, u, v in zip(a._fields, a, b):
+                if name == "fifo":
+                    u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
+                if not torch.equal(u, v):
+                    fail(f"router kernel != plain step: leaf {name} after "
+                         f"chunk {chunk_i}")
+        print(f"  router kernel == plain step over 512 cycles, 6 lanes, "
+              f"{int(a.ejected.sum())} flits ejected", flush=True)
+
+    ops.reset_launch_counts()
+    with Phase("no-NoC (Tab. I)"):
+        ck = load_checkpoint(CKPT, device="cuda")
+        net = LeNet(ck.params, device="cuda")
+        stream = net.weight_stream()
+        tab1 = []
+        for fmt in ("float32", "fixed8"):
+            vals = stream if fmt == "float32" else quantize_fixed8(stream).values
+            base = wire.measure(flits.pack(vals, 8))
+            for tb in ("stable", "pattern"):
+                opt = wire.measure(wire.by_name("O1", tiebreak=tb)
+                                   .apply_single(vals, 8))
+                red = (1 - opt["bt_per_flit"] / base["bt_per_flit"]) * 100
+                tab1.append({"case": f"{fmt}-trained", "tiebreak": tb,
+                             "baseline_bt_per_flit": base["bt_per_flit"],
+                             "ordered_bt_per_flit": opt["bt_per_flit"],
+                             "baseline_total_bt": base["total_bt"],
+                             "ordered_total_bt": opt["total_bt"],
+                             "reduction_pct": red})
+                print(f"  {fmt:8s} {tb:8s} BT/flit {base['bt_per_flit']:.3f}"
+                      f" -> {opt['bt_per_flit']:.3f}  reduction {red:.2f}%",
+                      flush=True)
+        # The same BT totals from the plain path on the CPU (exact; the
+        # per-flit ratio is a float32 division, which CUDA takes as a
+        # multiply by the reciprocal, so it is held to 1e-6).
+        cpu_stream = stream.cpu()
+        for row in tab1:
+            fmt = row["case"].split("-")[0]
+            vals = (cpu_stream if fmt == "float32"
+                    else quantize_fixed8(cpu_stream).values)
+            opt = wire.measure(wire.by_name("O1", tiebreak=row["tiebreak"])
+                               .apply_single(vals, 8))
+            if opt["total_bt"] != row["ordered_total_bt"]:
+                fail("no-NoC BT on the card != plain path on the CPU")
+            if not math.isclose(opt["bt_per_flit"],
+                                row["ordered_bt_per_flit"], rel_tol=1e-6):
+                fail("no-NoC BT per flit on the card != the CPU's")
+        report["tab1"] = tab1
+    nonoc_launches = {k.name: k.launches for k in ops.KERNELS}
+
+    ops.reset_launch_counts()
+    with Phase("main path (full-width sweep)"):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        img, label = glyph_batch(gen, 1, device="cuda")
+        layers = net.layer_traffic(img[0])
+        npk = sum(int(lt.inputs.shape[0]) for lt in layers)
+        logits = net(img)
+        cpu_logits = LeNet({k: v.cpu() for k, v in ck.params.items()},
+                           device="cpu")(img.cpu())
+        if not torch.allclose(logits.cpu(), cpu_logits, rtol=1e-5, atol=1e-6):
+            fail("LeNet forward on the card disagrees with the CPU")
+        t0 = time.perf_counter()
+        rep = run_sweep(SweepGrid(**AXES, max_packets_per_layer=None),
+                        lambda _name: layers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(rep.rows) != 36:
+            fail(f"expected 36 rows, got {len(rep.rows)}")
+        if not rep.stats["ejected_equals_injected"]:
+            fail("a lane did not eject every injected flit")
+        for r in rep.rows:
+            vals = [r["total_bt"], r["cycles"], r["reduction_pct"],
+                    r["adjusted_reduction_pct"]]
+            if not all(math.isfinite(v) for v in vals) or r["total_bt"] <= 0:
+                fail(f"bad row {r}")
+            if r["transform"] == "O0" and r["reduction_pct"] != 0:
+                fail("O0 row is not its own baseline")
+            print(f"  {r['mesh']} {r['precision']:8s} {r['tiebreak']:8s} "
+                  f"{r['transform']}: total_bt {r['total_bt']} drain_cycle "
+                  f"{r['cycles']} flits {r['flits']} reduction "
+                  f"{r['reduction_pct']:.2f}% adjusted "
+                  f"{r['adjusted_reduction_pct']:.2f}%", flush=True)
+        st = rep.stats
+        print(f"  {npk} packets per inference; simulated "
+              f"{st['stepped_cycles']} lane-cycles in {st['simulate_s']:.3f} s"
+              f" = {st['cycles_per_sec']} cycles/s; packetize "
+              f"{st['packetize_s']:.3f} s; wall {wall:.3f} s", flush=True)
+        report["main"] = {"rows": rep.rows, "stats": st, "wall_s": wall,
+                          "packets": npk, "label": int(label[0])}
+    main_launches = {k.name: k.launches for k in ops.KERNELS}
+
+    with Phase("launches"):
+        launches = {k.name: nonoc_launches[k.name] + main_launches[k.name]
+                    for k in ops.KERNELS}
+        print(f"  no-NoC path {nonoc_launches} | NoC path {main_launches}",
+              flush=True)
+        for name, n in launches.items():
+            if n <= 0:
+                fail(f"kernel {name} was not launched on the main path")
+        report["launches"] = {"no_noc": nonoc_launches, "noc": main_launches}
+
+    with Phase("kernel vs plain path (pinned budget)"):
+        t0 = time.perf_counter()
+        kern = run_sweep(SweepGrid(**AXES, **PINNED, backend="cuda"),
+                         lambda _name: layers)
+        t1 = time.perf_counter()
+        plain = run_sweep(SweepGrid(**AXES, **PINNED, backend="plain"),
+                          lambda _name: layers)
+        t2 = time.perf_counter()
+        if kern.rows != plain.rows:
+            fail("pinned sweep rows differ between backend='cuda' and "
+                 "backend='plain'")
+        print(f"  36 rows identical; kernel sweep {t1 - t0:.3f} s "
+              f"(simulate {kern.stats['simulate_s']} s), plain sweep "
+              f"{t2 - t1:.3f} s (simulate {plain.stats['simulate_s']} s)",
+              flush=True)
+        report["pinned"] = {"rows": kern.rows, "cuda": kern.stats,
+                            "plain": plain.stats}
+
+    kernels = []
+    with Phase("timing"):
+        # K2 at a main-path shape: conv2's (1600, 150) float32 operands
+        # (the largest popcount call of the ordering).
+        x = words32(layers[1].weights.contiguous()).contiguous()
+        n = x.numel()
+        got = popcount.popcount_words(x)
+        err = int((got - ref.popcount_ref(x)).abs().max())
+        ms = cuda_ms(lambda: popcount.popcount_words(x), 50)
+        pms = cuda_ms(lambda: ref.popcount_ref(x), 50)
+        bound = max(8 * n / HBM_BYTES_PER_S, n / ALU_OPS_PER_S) * 1e3
+        kernels.append(dict(
+            name="popcount", route="cuda",
+            source="src/repro_torch/kernels/csrc/popcount.cu",
+            replaces="src/repro/kernels/popcount.py:34",
+            launches=launches["popcount"], max_abs_err=err, ms=ms,
+            plain_ms=pms, bound_ms=bound, bound_by="bytes", library_ms=None,
+            shape=list(x.shape)))
+        # K3 at the no-NoC shape: the float32 weight stream in 8-lane flits.
+        fw = words32(flits.pack(stream, 8).words).contiguous()
+        f, lanes = fw.shape
+        got = bt_count.bt_boundaries(fw)
+        err = int((got - ref.bt_boundaries_ref(fw)).abs().max())
+        ms = cuda_ms(lambda: bt_count.bt_boundaries(fw), 50)
+        pms = cuda_ms(lambda: ref.bt_boundaries_ref(fw), 50)
+        nbytes = 4 * f * lanes + 4 * (f - 1)
+        ops_n = 3 * (f - 1) * lanes
+        bound = max(nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S) * 1e3
+        kernels.append(dict(
+            name="bt_count", route="cuda",
+            source="src/repro_torch/kernels/csrc/bt_count.cu",
+            replaces="src/repro/kernels/bt_count.py:36",
+            launches=launches["bt_count"], max_abs_err=err, ms=ms,
+            plain_ms=pms, bound_ms=bound,
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops_n / ALU_OPS_PER_S else "operations",
+            library_ms=None, shape=[f, lanes]))
+        # K1 at the main-path shape: the full-width 8x8_mc4 batch (12
+        # lanes, MC streams padded to 8), one 256-cycle chunk from a cold
+        # state.
+        cfg = mesh_by_name("8x8_mc4")
+        key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
+        from repro_torch.noc.traffic import build_traffic_streamed
+        from repro_torch.noc.sweep import _QUANTIZERS
+        variants = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
+                    for prec in AXES["precisions"]
+                    for tb in AXES["tiebreaks"] for tr in AXES["transforms"]]
+        t = build_traffic_streamed(layers, cfg, variants, num_streams=8)
+        wr = sim.fuse_traffic(t)
+        b, m = wr.length.shape
+        mc = torch.as_tensor(np.broadcast_to(np.asarray(
+            tuple(cfg.mc_nodes) + (0,) * (m - cfg.num_mcs), np.int32),
+            (b, m)).copy(), device="cuda")
+        cyc = 256
+        cold = sim.make_state(cfg, m, batch=b, device="cuda")
+        holder = {}
+
+        def fresh():
+            holder["s"] = sim.SimState(*(leaf.clone() for leaf in cold))
+
+        fresh()
+        kout = router_step.router_step(holder["s"], wr, mc, cyc, key, True)
+        pout = ref.router_step_ref(cold, wr, mc, cyc, key, True)
+        torch.cuda.synchronize()
+        err = 0
+        for name, u, v in zip(kout._fields, kout, pout):
+            if name == "fifo":
+                u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
+            err = max(err, int((u.long() - v.long()).abs().max()))
+        ms = cuda_ms(lambda: router_step.router_step(
+            holder["s"], wr, mc, cyc, key, True), 20, setup=fresh)
+        pms = cuda_ms(lambda: ref.router_step_ref(cold, wr, mc, cyc, key,
+                                                  True), 2)
+        nr, p, v, lf = cfg.num_routers, 5, cfg.num_vcs, cfg.lanes + 1
+        state_bytes = sum(leaf.numel() * 4 for leaf in cold)
+        injected = int(kout.inj_ptr.sum())
+        nbytes = 2 * state_bytes + injected * lf * 4 + 2 * b * m * 4
+        moved = int(kout.link_flits.sum())
+        # Per lane-cycle: route + credit per (router, slot) ~12 ops, the
+        # round-robin scan (router, out-port, slot) ~4 ops; per moved or
+        # injected flit: XOR + popcount + add per lane, and the LF-word copy.
+        ops_n = (b * cyc * (nr * p * v * 12 + nr * p * p * v * 4)
+                 + (moved + injected) * (cfg.lanes * 3 + lf))
+        tb_, to_ = nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S
+        kernels.append(dict(
+            name="router_step", route="cuda",
+            source="src/repro_torch/kernels/csrc/router_step.cu",
+            replaces="src/repro/kernels/router_step.py:269",
+            launches=launches["router_step"], max_abs_err=err, ms=ms,
+            plain_ms=pms, bound_ms=max(tb_, to_) * 1e3,
+            bound_by="bytes" if tb_ >= to_ else "operations",
+            library_ms=None, shape=[b, nr, m, int(wr.wire.shape[2]), cyc]))
+        for kd in kernels:
+            if kd["max_abs_err"] != 0:
+                fail(f"kernel {kd['name']} disagrees at the timing shapes")
+            print(f"  {kd['name']}: {kd['ms']:.4f} ms (plain {kd['plain_ms']:.4f}"
+                  f" ms, bound {kd['bound_ms']:.5f} ms by {kd['bound_by']}) "
+                  f"shape {kd['shape']}", flush=True)
+        report["kernels"] = kernels
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1, default=str)
+
+    print(json.dumps({"kernels": [{k: kd[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for kd in kernels]}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

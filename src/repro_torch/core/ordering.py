@@ -1,0 +1,186 @@
+"""The paper's contribution: '1'-bit-count-based data transmission ordering.
+
+The port of ``repro.core.ordering`` for O0-O2:
+
+* :func:`descending_order` - sort a stream by popcount, descending
+  (``fill='rowmajor'``, the paper's Fig. 9 layout, or ``'interleave'``).
+* :func:`affiliated_order` (O1) - weights sorted by their own popcount,
+  inputs carried along so (input, weight) pairs stay matched.
+* :func:`separated_order` (O2) - inputs and weights each sorted by their
+  own popcount; needs a recovery index (:func:`index_overhead_bits`).
+
+Orderings work inside consecutive windows of the stream (``window`` = the
+packet payload); ``window=None`` sorts the whole stream. Every sort is a
+stable ``torch.argsort`` and the keys are the popcounts (through the
+popcount kernel on CUDA). The ``pattern`` tiebreak orders equal counts by
+the bit pattern read as UNSIGNED - the carrier words are widened to int64
+first, or a word with bit 31 set would sort as negative.
+
+The O3/O3a min-Hamming orderings arrive with a later slice (ROADMAP queue
+A, item 10).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .bits import bit_width, popcount, unsigned_view, widen_unsigned
+
+__all__ = [
+    "Ordered",
+    "PairedOrdered",
+    "pad_to_window",
+    "descending_perm",
+    "descending_perm_rows",
+    "descending_order",
+    "affiliated_order",
+    "separated_order",
+    "inverse_permutation",
+    "apply_permutation",
+    "index_overhead_bits",
+]
+
+
+class Ordered(NamedTuple):
+    values: torch.Tensor     # reordered stream, same multiset as the input
+    perm: torch.Tensor       # values = input[perm]
+
+
+class PairedOrdered(NamedTuple):
+    inputs: torch.Tensor
+    weights: torch.Tensor
+    input_perm: torch.Tensor
+    weight_perm: torch.Tensor
+
+
+def _windowed(n: int, window: Optional[int]) -> tuple:
+    """Resolve (num_windows, window) for a length-n stream."""
+    if window is None or window >= n:
+        return 1, n
+    if n % window:
+        raise ValueError(
+            f"stream length {n} is not a multiple of window {window}; "
+            "pad the stream before ordering (the packetizer does this)")
+    return n // window, window
+
+
+def pad_to_window(values: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """Zero-pad a flat stream to the next packet (window) boundary."""
+    flat = values.reshape(-1)
+    if window is None:
+        return flat
+    pad = (-flat.shape[0]) % window
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    return flat
+
+
+def descending_perm_rows(rows: torch.Tensor,
+                         tiebreak: str = "stable") -> torch.Tensor:
+    """Per-row permutation (int64, (R, W)) sorting each row of ``rows`` by
+    '1'-bit count, descending.
+
+    ``stable`` keeps the original order among equal counts. ``pattern``
+    orders equal counts by bit pattern, descending as unsigned, then by
+    position: the reference's two stable sorts (``~u`` ascending, then the
+    count) are one stable sort on the composite key ``(-count, ~u)``, which
+    this builds in int64 from the zero-extended pattern.
+    """
+    counts = popcount(rows).to(torch.int64)
+    if tiebreak == "stable":
+        key = -counts
+    elif tiebreak == "pattern":
+        nbits = bit_width(unsigned_view(rows).dtype)
+        inv = ((1 << nbits) - 1) - widen_unsigned(rows)      # ~u, unsigned
+        key = ((nbits - counts) << nbits) | inv
+    else:
+        raise ValueError(f"unknown tiebreak {tiebreak!r}")
+    return torch.argsort(key, dim=-1, stable=True)
+
+
+def descending_perm(values: torch.Tensor, window: Optional[int] = None,
+                    tiebreak: str = "stable") -> torch.Tensor:
+    """Permutation sorting ``values`` by '1'-bit count, descending, inside
+    each window; flat int64 indices into the zero-padded stream."""
+    flat = pad_to_window(values, window)
+    nw, w = _windowed(flat.shape[0], window)
+    perm = descending_perm_rows(flat.reshape(nw, w), tiebreak)
+    offset = (torch.arange(nw, device=perm.device) * w)[:, None]
+    return (perm + offset).reshape(-1)
+
+
+def apply_permutation(values: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    return values.reshape(-1)[perm]
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm] = arange; used to de-order separated streams."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                             device=perm.device)
+    return inv
+
+
+def descending_order(
+    values: torch.Tensor,
+    window: Optional[int] = None,
+    fill: str = "rowmajor",
+    lanes: Optional[int] = None,
+    tiebreak: str = "stable",
+) -> Ordered:
+    """Sort a stream by popcount descending (the paper's core transform).
+
+    fill='rowmajor': flit k gets sorted values [k*lanes, (k+1)*lanes).
+    fill='interleave': the sorted window is dealt round-robin across the
+        window's flits (x1>=y1>=x2>=y2... per lane pair). Needs ``lanes``.
+    """
+    flat = pad_to_window(values, window)
+    perm = descending_perm(flat, window, tiebreak)
+    if fill == "rowmajor":
+        return Ordered(flat[perm], perm)
+    if fill != "interleave":
+        raise ValueError(f"unknown fill {fill!r}")
+    if lanes is None:
+        raise ValueError("fill='interleave' needs the flit lane count")
+    nw, w = _windowed(flat.shape[0], window)
+    if w % lanes:
+        raise ValueError("window must be a multiple of lanes for interleave")
+    dealt = perm.reshape(nw, lanes, w // lanes).transpose(1, 2).reshape(-1)
+    return Ordered(flat[dealt], dealt)
+
+
+def affiliated_order(
+    inputs: torch.Tensor,
+    weights: torch.Tensor,
+    window: Optional[int] = None,
+    tiebreak: str = "stable",
+) -> PairedOrdered:
+    """O1: order (input, weight) pairs by the *weight's* popcount."""
+    if weights.numel() != inputs.numel():
+        raise ValueError(
+            "affiliated ordering needs paired streams of equal length")
+    wflat = pad_to_window(weights, window)
+    iflat = pad_to_window(inputs, window)
+    perm = descending_perm(wflat, window, tiebreak)
+    return PairedOrdered(iflat[perm], wflat[perm], perm, perm)
+
+
+def separated_order(
+    inputs: torch.Tensor,
+    weights: torch.Tensor,
+    window: Optional[int] = None,
+    tiebreak: str = "stable",
+) -> PairedOrdered:
+    """O2: order inputs and weights independently, each by its own popcount."""
+    wflat = pad_to_window(weights, window)
+    iflat = pad_to_window(inputs, window)
+    wperm = descending_perm(wflat, window, tiebreak)
+    iperm = descending_perm(iflat, window, tiebreak)
+    return PairedOrdered(iflat[iperm], wflat[wperm], iperm, wperm)
+
+
+def index_overhead_bits(window: int) -> int:
+    """Bits per value of the separated-ordering recovery index."""
+    return max(1, (window - 1).bit_length())

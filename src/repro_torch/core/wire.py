@@ -1,0 +1,188 @@
+"""WireTransform: the composable link-payload transform API (O0/O1/O2).
+
+The port of ``repro.core.wire`` for the paper's three configurations:
+
+    O0 (baseline)   -> IdentityTransform
+    O1 (affiliated) -> AffiliatedTransform   (keyed on the weight stream)
+    O2 (separated)  -> SeparatedTransform
+
+plus the single-stream ``desc`` transform. Each reports the recovery
+overhead a receiver needs, so benchmarks charge it honestly. The
+min-Hamming transforms (O3/O3a), flit protection and MSR compression
+arrive with later slices (ROADMAP queue A, items 10, 11, 13).
+
+``order_packets`` is the row-batched form the packetizer uses: row ``i`` of
+its result is ``order(inputs[i], weights[i])``, i.e. each packet is its own
+stream, windowed by ``window`` inside the packet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import bt as bt_mod
+from . import ordering
+from .flits import FlitStream, pack, pack_paired
+
+__all__ = [
+    "WireTransform",
+    "IdentityTransform",
+    "DescendingTransform",
+    "AffiliatedTransform",
+    "SeparatedTransform",
+    "TRANSFORMS",
+    "by_name",
+    "measure",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class WireTransform:
+    """Base: pack a paired (inputs, weights) stream into flits untouched."""
+
+    name: str = "O0"
+    window: Optional[int] = None
+    tiebreak: str = "stable"   # "pattern" clusters equal-count values
+
+    # Whether ``order`` permutes values (and so pads to its window).
+    reorders = False
+
+    def overhead_bits_per_value(self, window: int, paired: bool = True) -> int:
+        """Recovery bits the receiver needs per transmitted value
+        (``paired=True``: request phase, only re-pairing is chargeable;
+        ``paired=False``: a single stream whose order must be restored)."""
+        return 0
+
+    def order(self, inputs: torch.Tensor, weights: torch.Tensor, lanes: int):
+        """The value reordering alone, before flit packing."""
+        return inputs, weights
+
+    def order_single(self, values: torch.Tensor, lanes: int) -> torch.Tensor:
+        return values
+
+    def apply(self, inputs: torch.Tensor, weights: torch.Tensor,
+              lanes: int) -> FlitStream:
+        oi, ow = self.order(inputs, weights, lanes)
+        return pack_paired(oi, ow, lanes)
+
+    def apply_single(self, values: torch.Tensor, lanes: int) -> FlitStream:
+        return pack(self.order_single(values, lanes), lanes)
+
+    def order_packets(self, inputs: torch.Tensor, weights: torch.Tensor,
+                      lanes: int):
+        """Row-batched :meth:`order` over (n, k) packets -> (n, k') each."""
+        if not self.reorders:
+            return inputs, weights
+        n, k = inputs.shape
+        w = k if self.window is None or self.window >= k else self.window
+        kp = -(-k // w) * w
+        if kp != k:
+            inputs = F.pad(inputs, (0, kp - k))
+            weights = F.pad(weights, (0, kp - k))
+        inner = dataclasses.replace(self, window=w)
+        oi, ow = inner.order(inputs.reshape(-1), weights.reshape(-1), lanes)
+        return oi.reshape(n, kp), ow.reshape(n, kp)
+
+
+class IdentityTransform(WireTransform):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class DescendingTransform(WireTransform):
+    """Single-stream popcount-descending ordering (no pairing semantics)."""
+
+    name: str = "desc"
+    fill: str = "rowmajor"
+    reorders = True
+
+    def overhead_bits_per_value(self, window: int, paired: bool = True) -> int:
+        return ordering.index_overhead_bits(window)
+
+    def order_single(self, values: torch.Tensor, lanes: int) -> torch.Tensor:
+        return ordering.descending_order(
+            values, window=self.window, fill=self.fill,
+            lanes=lanes if self.fill == "interleave" else None,
+            tiebreak=self.tiebreak).values
+
+    def order(self, inputs: torch.Tensor, weights: torch.Tensor, lanes: int):
+        half = (lanes // 2) if self.fill == "interleave" else None
+        oi = ordering.descending_order(inputs, window=self.window,
+                                       fill=self.fill, lanes=half,
+                                       tiebreak=self.tiebreak)
+        ow = ordering.descending_order(weights, window=self.window,
+                                       fill=self.fill, lanes=half,
+                                       tiebreak=self.tiebreak)
+        return oi.values, ow.values
+
+
+@dataclasses.dataclass(frozen=True)
+class AffiliatedTransform(WireTransform):
+    """O1: order pairs by weight popcount; pairing intact, zero recovery cost."""
+
+    name: str = "O1"
+    reorders = True
+
+    def overhead_bits_per_value(self, window: int, paired: bool = True) -> int:
+        return 0 if paired else ordering.index_overhead_bits(window)
+
+    def order(self, inputs: torch.Tensor, weights: torch.Tensor, lanes: int):
+        po = ordering.affiliated_order(inputs, weights, window=self.window,
+                                       tiebreak=self.tiebreak)
+        return po.inputs, po.weights
+
+    def order_single(self, values: torch.Tensor, lanes: int) -> torch.Tensor:
+        return ordering.descending_order(values, window=self.window,
+                                         tiebreak=self.tiebreak).values
+
+
+@dataclasses.dataclass(frozen=True)
+class SeparatedTransform(WireTransform):
+    """O2: order each stream by its own popcount; index needed to re-pair."""
+
+    name: str = "O2"
+    reorders = True
+
+    def overhead_bits_per_value(self, window: int, paired: bool = True) -> int:
+        return ordering.index_overhead_bits(window)
+
+    def order(self, inputs: torch.Tensor, weights: torch.Tensor, lanes: int):
+        po = ordering.separated_order(inputs, weights, window=self.window,
+                                      tiebreak=self.tiebreak)
+        return po.inputs, po.weights
+
+    def order_single(self, values: torch.Tensor, lanes: int) -> torch.Tensor:
+        return ordering.descending_order(values, window=self.window,
+                                         tiebreak=self.tiebreak).values
+
+
+TRANSFORMS = {
+    "O0": IdentityTransform,
+    "O1": AffiliatedTransform,
+    "O2": SeparatedTransform,
+    "desc": DescendingTransform,
+}
+
+_LATER = {"O3": 10, "O3a": 10}
+
+
+def by_name(name: str, window: Optional[int] = None, **kw) -> WireTransform:
+    if name in _LATER:
+        raise NotImplementedError(
+            f"transform {name!r} arrives with a later slice of the port "
+            f"(ROADMAP queue A, item {_LATER[name]})")
+    return TRANSFORMS[name](name=name, window=window, **kw)
+
+
+def measure(stream: FlitStream) -> dict:
+    """BT metrics of one flit stream (the Fig. 8 recorder)."""
+    return {
+        "total_bt": float(bt_mod.bt_stream(stream)),
+        "bt_per_flit": float(bt_mod.bt_per_flit(stream)),
+        "expected_bt": float(bt_mod.expected_bt_stream(stream)),
+        "num_flits": int(stream.words.shape[0]),
+        "flit_bits": stream.flit_bits,
+    }

@@ -1,0 +1,133 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface and loaded with ``ctypes`` - no PyTorch
+headers, so a build takes seconds, not minutes. Libraries land in the
+checkout's ``build/kernels/`` (listed in ``.gitignore``), named by a hash of
+the source and the flags, so an edited source is never served a stale
+library. Nothing is built when a module is imported: the first launch
+builds, and :func:`build_all` builds every kernel at once with one ``nvcc``
+per source, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+import torch
+
+__all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC", "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in "
+                       "/usr/local/cuda/bin); the CUDA kernels are built on "
+                       "a machine with the CUDA toolkit")
+
+
+class CudaKernel:
+    """One CUDA source, its C entry point, and its launch counter.
+
+    ``launches`` is a plain integer that :meth:`launch` adds one to, and
+    nothing else touches, so a run can show that its main path went through
+    this kernel.
+    """
+
+    def __init__(self, name: str, source: str, symbol: str,
+                 argtypes: Sequence, replaces: str):
+        self.name = name
+        self.source = CSRC / source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.replaces = replaces
+        self.launches = 0
+        self.build_log: str = ""
+        self._fn = None
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes()
+                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        return BUILD_DIR / f"lib{self.name}_{h}.so"
+
+    def _command(self, tmp: Path) -> List[str]:
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+
+    def _load(self, path: Path):
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
+    def fn(self):
+        """The bound C function, building the library at first use."""
+        if self._fn is None:
+            build_all([self])
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Launch on the current stream; raise on a launch error."""
+        fn = self.fn()
+        self.launches += 1
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"cudaError {err}")
+
+
+def stream() -> int:
+    """The current CUDA stream handle, for a kernel's ``stream`` argument."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
+    """Build (in parallel) and load every kernel not yet loaded; returns the
+    seconds each build took (0.0 for a library found already built)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pending = []
+    times: Dict[str, float] = {}
+    for k in kernels:
+        if k._fn is not None:
+            times[k.name] = 0.0
+            continue
+        out = k.library_path()
+        if out.exists():
+            k._load(out)
+            times[k.name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(k._command(tmp), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        pending.append((k, out, tmp, proc, time.perf_counter()))
+    failures: List[str] = []
+    for k, out, tmp, proc, t0 in pending:
+        log, _ = proc.communicate()
+        times[k.name] = time.perf_counter() - t0
+        k.build_log = log
+        if proc.returncode != 0:
+            failures.append(f"{k.name} ({k.source.name}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        k._load(out)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return times

@@ -1,0 +1,679 @@
+"""Cycle-level NoC simulator on PyTorch tensors.
+
+The port of ``repro.noc.sim``: a 2D mesh with X-Y routing, 4 VCs per input
+port with 4-flit FIFOs, conservative one-cycle credits, round-robin switch
+allocation per output port, one flit per link per cycle, and the paper's
+Fig. 8 BT recorder on every link and every NI link. See the reference's
+module docstring and DESIGN.md for the modelling choices; the arithmetic
+here is the same, operation for operation.
+
+Two implementations of a router cycle, selected by ``backend=``:
+
+* ``plain_step`` - eager PyTorch, a copy of ``repro.noc.sim._make_step``
+  with ``faults=None``, ``track=False``, ``timestamps=False``, batched over
+  a leading variants axis. It runs on any device and is the CPU path.
+* the Hopper kernel ``repro_torch.kernels.router_step`` - a whole chunk of
+  cycles per launch, bit-identical to the plain step on every real router
+  row. ``backend="auto"`` uses it for CUDA tensors.
+
+State is always batched: every leaf carries a leading variants axis B;
+``simulate`` drains one Traffic as a batch of one. The conservation
+ledger, ``devices=``, timestamps and faults belong to later slices of the
+port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..core.bits import popcount32
+from .topology import NocConfig, NUM_PORTS, OPPOSITE, PORT_E, PORT_LOCAL, \
+    PORT_N, PORT_S, PORT_W
+
+__all__ = ["Traffic", "Wire", "SimState", "SimResult", "DrainTimeout",
+           "simulate", "simulate_batch", "make_state", "fuse_traffic",
+           "pack_sideband", "plain_step", "BACKENDS", "META_PAYLOAD",
+           "META_TAIL"]
+
+# Flit meta bitfield
+META_PAYLOAD = 1
+META_TAIL = 2
+
+# Packed sideband word layout (one int32 lane stacked after the payload):
+#   bits 0..8    destination router id (up to 512 routers; 16x16 = 256)
+#   bits 9..10   META bitfield (META_PAYLOAD | META_TAIL)
+#   bits 11..15  static VC index (up to 32 VCs)
+SIDE_DEST_BITS = 9
+SIDE_META_SHIFT = 9
+SIDE_VC_SHIFT = 11
+_DEST_MASK = (1 << SIDE_DEST_BITS) - 1
+_META_MASK = 3
+MAX_ROUTERS = 1 << SIDE_DEST_BITS
+MAX_VCS = 1 << (16 - SIDE_VC_SHIFT)
+
+BACKENDS = ("auto", "plain", "cuda")
+
+_LATER = "a later slice of the port (ROADMAP queue A)"
+
+
+class Traffic(NamedTuple):
+    """Per-source injection streams, padded to a common length T.
+
+    words:  (M, T, L) int32 - flit payloads (uint32 bit patterns)
+    dest:   (M, T) int32    - destination router id
+    meta:   (M, T) int32    - META_* bitfield
+    vc:     (M, T) int32    - static VC assignment (round-robin per packet)
+    pkt:    (M, T) int32    - packet id
+    length: (M,) int32      - real stream length per source
+    num_packets: int        - packet-id count (-1: unknown)
+
+    A batched Traffic carries one extra leading variants axis B on every
+    tensor field.
+    """
+
+    words: torch.Tensor
+    dest: torch.Tensor
+    meta: torch.Tensor
+    vc: torch.Tensor
+    pkt: torch.Tensor
+    length: torch.Tensor
+    num_packets: int = -1
+
+    def variant(self, i) -> "Traffic":
+        """One variant row of a batched Traffic (metadata preserved)."""
+        return self._replace(
+            words=self.words[i], dest=self.dest[i], meta=self.meta[i],
+            vc=self.vc[i], pkt=self.pkt[i], length=self.length[i])
+
+
+class Wire(NamedTuple):
+    """Fused wire-format traffic, batched: the simulator's input.
+
+    wire: (B, M, T, LF) int32 - payload lanes, then the packed sideband lane.
+    length: (B, M) int32
+    """
+
+    wire: torch.Tensor
+    length: torch.Tensor
+
+
+def pack_sideband(dest: torch.Tensor, meta: torch.Tensor,
+                  vc: torch.Tensor) -> torch.Tensor:
+    """Pack (dest, META, VC) into the one-word sideband layout (int32)."""
+    return (dest.to(torch.int32) | (meta.to(torch.int32) << SIDE_META_SHIFT)
+            | (vc.to(torch.int32) << SIDE_VC_SHIFT))
+
+
+def fuse_traffic(traffic: Traffic) -> Wire:
+    """Stack payload lanes with the packed sideband, with a leading variants
+    axis (an unbatched Traffic gets B = 1)."""
+    if traffic.length.dim() == 1:
+        traffic = Traffic(*(t[None] for t in traffic[:6]),
+                          num_packets=traffic.num_packets)
+    side = pack_sideband(traffic.dest, traffic.meta, traffic.vc)
+    wire = torch.cat([traffic.words.to(torch.int32), side[..., None]], dim=-1)
+    return Wire(wire.contiguous(), traffic.length.to(torch.int32).contiguous())
+
+
+class SimState(NamedTuple):
+    """Batched simulator state: 13 int32 leaves, each with a leading B."""
+
+    fifo: torch.Tensor        # (B, NR+1, P, V, D, LF) payload | sideband
+    head: torch.Tensor        # (B, NR+1, P, V)
+    count: torch.Tensor       # (B, NR+1, P, V)
+    rr: torch.Tensor          # (B, NR, P) round-robin pointer per out-port
+    link_last: torch.Tensor   # (B, NR, P, L) last word per output link
+    link_bt: torch.Tensor     # (B, NR, P) accumulated transitions
+    link_flits: torch.Tensor  # (B, NR, P) flits traversed
+    inj_ptr: torch.Tensor     # (B, M)
+    inj_last: torch.Tensor    # (B, M, L) NI link state
+    inj_bt: torch.Tensor      # (B, M)
+    ejected: torch.Tensor     # (B,) flits delivered
+    cycle: torch.Tensor       # (B,)
+    drained_at: torch.Tensor  # (B,) first cycle with everything ejected, -1
+
+    def take(self, idx: torch.Tensor) -> "SimState":
+        """The lanes ``idx`` of every leaf (lane compaction)."""
+        return SimState(*(leaf.index_select(0, idx) for leaf in self))
+
+
+@dataclasses.dataclass
+class SimResult:
+    cycles: int
+    ejected: int
+    injected: int
+    link_bt: np.ndarray      # (NR, P) per-output-link transitions
+    link_flits: np.ndarray
+    inj_bt: np.ndarray       # (M,) NI-link transitions
+    total_bt: int            # inter-router + ejection + NI links
+    inter_router_bt: int
+    # Exact cycle the last flit ejected; ``cycles`` is chunk-quantized.
+    drain_cycle: Optional[int] = None
+
+    @property
+    def bt_per_flit(self) -> float:
+        return self.total_bt / max(int(self.link_flits.sum()), 1)
+
+
+class DrainTimeout(RuntimeError):
+    """A drain hit ``max_cycles`` with flits still in the network.
+
+    Attributes: ``cycle``, ``ejected``, ``total``; ``occupancy`` lists
+    ``(router, port, flits)`` for every non-empty input-FIFO block, busiest
+    first; ``pending`` lists ``(stream, flits_not_yet_injected)``.
+    """
+
+    def __init__(self, message: str, *, cycle: int, ejected: int, total: int,
+                 occupancy=None, pending=None):
+        super().__init__(message)
+        self.cycle = cycle
+        self.ejected = ejected
+        self.total = total
+        self.occupancy = occupancy or []
+        self.pending = pending or []
+
+
+def _drain_timeout(context: str, cycle: int, ejected: int, total: int,
+                   count: np.ndarray, inj_ptr: np.ndarray,
+                   lengths: np.ndarray) -> DrainTimeout:
+    """Build the watchdog diagnostic from one lane's final state leaves."""
+    nr = count.shape[0] - 1                      # drop the phantom row
+    occ = count[:nr].sum(axis=-1)                # (NR, P) flits over VCs
+    rp = np.argwhere(occ > 0)
+    order = np.argsort(-occ[occ > 0], kind="stable")
+    occupancy = [(int(r), int(p_), int(occ[r, p_])) for r, p_ in rp[order]]
+    pending = [(int(i), int(lengths[i] - inj_ptr[i]))
+               for i in np.flatnonzero(inj_ptr < lengths)]
+    parts = [f"{context} did not drain: {ejected}/{total} flits ejected "
+             f"after {cycle} cycles"]
+    if pending:
+        parts.append(f"{sum(n for _, n in pending)} flits uninjected across "
+                     f"{len(pending)} streams")
+    if occupancy:
+        parts.append("occupied FIFOs (router, port, flits): "
+                     f"{occupancy[:8]}" + (" ..." if len(occupancy) > 8 else ""))
+    return DrainTimeout("; ".join(parts), cycle=cycle, ejected=ejected,
+                        total=total, occupancy=occupancy, pending=pending)
+
+
+def make_state(cfg: NocConfig, num_mcs: int, batch: int = 1,
+               device: DeviceLike = None) -> SimState:
+    """Zeroed batched simulator state."""
+    dev = resolve_device(device)
+    nr, p, v, d, l = (cfg.num_routers, NUM_PORTS, cfg.num_vcs, cfg.vc_depth,
+                      cfg.lanes)
+    if nr > MAX_ROUTERS:
+        raise ValueError(f"{nr} routers exceed the {SIDE_DEST_BITS}-bit "
+                         f"sideband dest field ({MAX_ROUTERS} max)")
+    if cfg.num_vcs > MAX_VCS:
+        raise ValueError(f"{cfg.num_vcs} VCs exceed the sideband VC field "
+                         f"({MAX_VCS} max)")
+
+    def z(*shape):
+        return torch.zeros((batch,) + shape, dtype=torch.int32, device=dev)
+
+    return SimState(
+        fifo=z(nr + 1, p, v, d, l + 1), head=z(nr + 1, p, v),
+        count=z(nr + 1, p, v), rr=z(nr, p), link_last=z(nr, p, l),
+        link_bt=z(nr, p), link_flits=z(nr, p), inj_ptr=z(num_mcs),
+        inj_last=z(num_mcs, l), inj_bt=z(num_mcs), ejected=z(),
+        cycle=z(), drained_at=torch.full((batch,), -1, dtype=torch.int32,
+                                         device=dev))
+
+
+def _mesh_key(cfg: NocConfig):
+    return (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
+
+
+_GEOMETRY = {}
+
+
+def _geometry(mesh_key, device: torch.device):
+    """Routing constants of ``_make_step`` (same derivation, same names),
+    as tensors on ``device``; cached per (mesh, device)."""
+    key = (mesh_key, str(device))
+    if key in _GEOMETRY:
+        return _GEOMETRY[key]
+    rows, cols, num_vcs, vc_depth, lanes = mesh_key
+    nr = rows * cols
+    coords = np.arange(nr)
+    rrow_np, rcol_np = coords // cols, coords % cols
+    delta_np = np.array([-cols, 1, cols, -1, 0])
+    down_np = coords[:, None] + delta_np[None, :]
+    dir_ok = np.stack([rrow_np > 0, rcol_np < cols - 1, rrow_np < rows - 1,
+                       rcol_np > 0, np.zeros(nr, bool)], axis=1)
+    opp4 = OPPOSITE[:4]
+
+    def t(a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    geo = dict(
+        rrow=t(rrow_np[:, None, None], torch.int32),
+        rcol=t(rcol_np[:, None, None], torch.int32),
+        nb_blk=t(np.where(dir_ok[:, :4], down_np[:, :4] * NUM_PORTS
+                          + opp4[None, :], nr * NUM_PORTS).reshape(-1)),
+        src_ok=t(dir_ok[:, :4], torch.bool),
+        src_po=t((np.where(dir_ok[:, :4], down_np[:, :4], 0) * NUM_PORTS
+                  + opp4[None, :]).reshape(-1)),
+        rcv_base=t(coords[:, None] * NUM_PORTS + np.arange(4)[None, :],
+                   torch.int32),
+        front_base=t(np.arange(nr * NUM_PORTS * num_vcs) * vc_depth),
+        slots=t(np.arange(NUM_PORTS * num_vcs), torch.int32),
+        outs=t(np.arange(NUM_PORTS)[None, None, :, None], torch.int32),
+        r2=t(np.arange(nr)[:, None], torch.int32),
+        o_local=t(np.arange(NUM_PORTS) == PORT_LOCAL, torch.bool),
+    )
+    _GEOMETRY[key] = geo
+    return geo
+
+
+def plain_step(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
+               mesh_key, count_headers: bool) -> SimState:
+    """One router cycle for every lane, in eager PyTorch.
+
+    A copy of ``repro.noc.sim._make_step`` (``faults=None``,
+    ``track=False``) with a leading variants axis: front sideband gather,
+    X-Y route, credit check, masked-min round-robin allocation, pops, the
+    winners' flit gather, link BT, receiver-side pushes, injection, NI-link
+    BT, drain detection. Returns a new state; ``state`` is not modified.
+    """
+    rows, cols, v, d, l = mesh_key
+    nr, p = rows * cols, NUM_PORTS
+    lf = l + 1
+    nslots = p * v
+    g = _geometry(mesh_key, state.fifo.device)
+    b = state.fifo.shape[0]
+    m = wire.length.shape[1]
+    t_cap = wire.wire.shape[2]
+    bidx = torch.arange(b, device=state.fifo.device)[:, None]
+
+    head_r = state.head[:, :nr]                         # (B, NR, P, V)
+    count_r = state.count[:, :nr]
+    valid = count_r > 0
+    fifo_rows = state.fifo.reshape(b, -1, lf)           # (B, rows, LF)
+
+    # --- front sideband: one word per FIFO ---
+    front_row = g["front_base"][None, :] + head_r.reshape(b, -1)
+    fside = fifo_rows[:, :, l].gather(1, front_row).reshape(b, nr, p, v)
+    fd = fside & _DEST_MASK
+
+    # --- route computation (X-Y, closed form) ---
+    dr, dc = fd // cols, fd % cols
+    rrow, rcol = g["rrow"], g["rcol"]
+    out_port = torch.where(
+        dc > rcol, PORT_E, torch.where(
+            dc < rcol, PORT_W, torch.where(
+                dr > rrow, PORT_S, torch.where(
+                    dr < rrow, PORT_N, PORT_LOCAL)))).to(torch.int32)
+
+    # --- credit check: downstream FIFO (same VC) has space ---
+    is_eject = out_port == PORT_LOCAL
+    count_blocks = state.count.reshape(b, (nr + 1) * p, v)
+    ok = count_blocks[:, g["nb_blk"]].reshape(b, nr, 4, v) < d
+    space = torch.where(
+        out_port == PORT_N, ok[:, :, None, PORT_N, :], torch.where(
+            out_port == PORT_E, ok[:, :, None, PORT_E, :], torch.where(
+                out_port == PORT_S, ok[:, :, None, PORT_S, :],
+                ok[:, :, None, PORT_W, :])))
+    request = valid & (is_eject | space)                # (B, NR, P, V)
+
+    # --- switch allocation: round-robin per (router, out_port) ---
+    slot_req = request.reshape(b, nr, nslots)
+    slot_out = out_port.reshape(b, nr, nslots)
+    req_po = slot_req[:, :, None, :] & (slot_out[:, :, None, :] == g["outs"])
+    slots = g["slots"]
+    rel = slots - state.rr[..., None]
+    rel = torch.where(rel < 0, rel + nslots, rel)
+    min_rel = torch.where(req_po, rel, nslots).amin(dim=3)   # (B, NR, P)
+    has = min_rel < nslots
+    winner = state.rr + min_rel
+    winner = torch.where(winner >= nslots, winner - nslots, winner)
+    rr_new = winner + 1
+    rr_new = torch.where(rr_new >= nslots, rr_new - nslots, rr_new)
+    rr_new = torch.where(has, rr_new, state.rr)
+
+    # --- pops ---
+    pop = ((slots == winner[..., None]) & has[..., None]).any(dim=2)
+    pop = pop.reshape(b, nr, p, v)
+    head_new = torch.where(pop, (head_r + 1) % d, head_r)
+    count_new = count_r - pop.to(torch.int32)
+    head2 = torch.cat([head_new, state.head[:, nr:]], dim=1)
+    count2 = torch.cat([count_new, state.count[:, nr:]], dim=1)
+
+    # --- gather the winners' flits only: (B, NR, P_out, LF) ---
+    win_p = winner // v
+    win_v = winner % v
+    win_pv = ((g["r2"] * p + win_p) * v + win_v).reshape(b, -1).long()
+    win_head = state.head.reshape(b, -1).gather(1, win_pv)
+    win_row = win_pv * d + win_head
+    mv = fifo_rows[bidx, win_row].reshape(b, nr, p, lf)
+    mv_side = mv[..., l]
+    mv_meta = (mv_side >> SIDE_META_SHIFT) & _META_MASK
+
+    # --- link BT recording (the Fig. 8 recorder) ---
+    tog = popcount32(state.link_last ^ mv[..., :l]).sum(-1, dtype=torch.int32)
+    counted = has if count_headers else has & ((mv_meta & META_PAYLOAD) > 0)
+    link_bt = state.link_bt + torch.where(counted, tog, 0)
+    link_flits = state.link_flits + has.to(torch.int32)
+    link_last = torch.where(has[..., None], mv[..., :l], state.link_last)
+
+    # --- pushes, receiver-side ---
+    src_po = g["src_po"]
+    inc_ok = has.reshape(b, -1)[:, src_po].reshape(b, nr, 4) & g["src_ok"]
+    inc_vc = win_v.reshape(b, -1)[:, src_po].reshape(b, nr, 4)
+    inc_w = mv.reshape(b, nr * p, lf)[:, src_po]        # (B, NR*4, LF)
+    wc4 = (head2[:, :nr, :4, :] + count2[:, :nr, :4, :]) % d
+    wslot = wc4[..., 0]
+    for vi in range(1, v):
+        wslot = torch.where(inc_vc == vi, wc4[..., vi], wslot)
+    ejected = state.ejected + (has & g["o_local"]).sum(
+        dim=(1, 2), dtype=torch.int32)
+
+    # --- injection: one flit per MC per cycle into the local in-port ---
+    ptr = state.inj_ptr
+    active = ptr < wire.length
+    safe_ptr = torch.clamp(ptr, max=t_cap - 1).long()
+    midx = torch.arange(m, device=ptr.device)[None, :]
+    iw = wire.wire[bidx, midx, safe_ptr]                 # (B, M, LF)
+    iside = iw[..., l]
+    imeta = (iside >> SIDE_META_SHIFT) & _META_MASK
+    ivc = iside >> SIDE_VC_SHIFT
+    head2_flat = head2.reshape(b, -1)
+    count2_flat = count2.reshape(b, -1)
+    mc_pv = ((mc_nodes * p + PORT_LOCAL) * v + ivc).long()
+    mc_cnt = count2_flat.gather(1, mc_pv)
+    can = active & (mc_cnt < d)
+    inj_pv = torch.where(can, mc_pv, (nr * p + PORT_LOCAL) * v + ivc.long())
+    islot = (head2_flat.gather(1, inj_pv) + count2_flat.gather(1, inj_pv)) % d
+
+    # --- one combined push+inject scatter (disjoint FIFO targets) ---
+    phantom_row = nr * p * v * d
+    rcv_row = torch.where(inc_ok, (g["rcv_base"] * v + inc_vc) * d + wslot,
+                          phantom_row)
+    cat_row = torch.cat([rcv_row.reshape(b, -1).long(), inj_pv * d + islot],
+                        dim=1)
+    cat_w = torch.cat([inc_w, iw], dim=1)
+    fifo_new = fifo_rows.clone()
+    fifo_new[bidx, cat_row] = cat_w
+    vcs4 = torch.arange(v, device=ptr.device, dtype=torch.int32)
+    count_inc = ((vcs4 == inc_vc[..., None])
+                 & inc_ok[..., None]).to(torch.int32)   # (B, NR, 4, V)
+    count_new = count2.clone()
+    count_new[:, :nr, :4, :] += count_inc
+    count_new = count_new.reshape(b, -1)
+    count_new.scatter_add_(1, inj_pv, can.to(torch.int32))
+    ptr_new = ptr + can.to(torch.int32)
+
+    # NI-link BT (MC -> router); the ordering unit sits right before it.
+    itog = popcount32(state.inj_last ^ iw[..., :l]).sum(-1, dtype=torch.int32)
+    icounted = can if count_headers else can & ((imeta & META_PAYLOAD) > 0)
+    inj_bt = state.inj_bt + torch.where(icounted, itog, 0)
+    inj_last = torch.where(can[..., None], iw[..., :l], state.inj_last)
+
+    total = wire.length.sum(dim=1, dtype=torch.int32)
+    drained_at = torch.where((state.drained_at < 0) & (ejected >= total),
+                             state.cycle + 1, state.drained_at)
+
+    return SimState(fifo_new.reshape(state.fifo.shape), head2,
+                    count_new.reshape(count2.shape), rr_new, link_last,
+                    link_bt, link_flits, ptr_new, inj_last, inj_bt, ejected,
+                    state.cycle + 1, drained_at)
+
+
+def _resolve_backend(backend: str, device: torch.device) -> str:
+    """``auto`` -> the kernel for CUDA tensors, the plain step for CPU
+    tensors; ``cuda`` on CPU tensors raises."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "auto":
+        return "cuda" if device.type == "cuda" else "plain"
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError("backend='cuda' runs the Hopper router kernel and "
+                         f"needs CUDA tensors; the traffic is on {device}")
+    return backend
+
+
+def _run_chunk(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
+               mesh_key, count_headers: bool, chunk: int,
+               backend: str) -> SimState:
+    from ..kernels import ops, ref
+    step = ref.router_step_ref if backend == "plain" else ops.router_step
+    return step(state, wire, mc_nodes, chunk, mesh_key, count_headers)
+
+
+def _validate_fields(cfg: NocConfig, traffic: Traffic) -> None:
+    """Range-check the fields that feed packed sidebands."""
+    if not traffic.dest.numel():
+        return
+    dmax = int(traffic.dest.max())
+    if dmax >= cfg.num_routers:
+        raise ValueError(f"traffic dest {dmax} out of range for a "
+                         f"{cfg.num_routers}-router config")
+    vmax = int(traffic.vc.max())
+    if vmax >= cfg.num_vcs:
+        raise ValueError(f"traffic vc {vmax} out of range for a "
+                         f"{cfg.num_vcs}-VC config")
+
+
+def _mc_array(cfg: NocConfig, traffic: Traffic, m: int,
+              batched: bool) -> np.ndarray:
+    """Per-stream injection node ids padded to ``m``; padding streams must be
+    empty."""
+    if m < cfg.num_mcs:
+        raise ValueError(
+            f"traffic has {m} MC streams, config has {cfg.num_mcs}")
+    length = traffic.length.cpu().numpy()
+    pad = length[..., cfg.num_mcs:] if batched else length[cfg.num_mcs:]
+    if m > cfg.num_mcs and np.any(pad != 0):
+        raise ValueError(
+            f"traffic has {m} MC streams for a {cfg.num_mcs}-MC config and "
+            "the extra streams are not empty padding")
+    return np.asarray(tuple(cfg.mc_nodes) + (0,) * (m - cfg.num_mcs),
+                      np.int32)
+
+
+def _result(leaves, total: int) -> SimResult:
+    (link_bt, link_flits, inj_bt, ejected, cycle, drained_at) = leaves
+    drain = int(drained_at)
+    return SimResult(
+        cycles=int(cycle), ejected=int(ejected), injected=total,
+        link_bt=link_bt, link_flits=link_flits, inj_bt=inj_bt,
+        total_bt=int(link_bt.sum() + inj_bt.sum()),
+        inter_router_bt=int(link_bt[:, :PORT_LOCAL].sum()),
+        drain_cycle=drain if drain >= 0 else int(cycle))
+
+
+def _unsupported(check_conservation: bool, devices) -> None:
+    if check_conservation:
+        raise NotImplementedError(
+            f"check_conservation (the packet ledger) arrives with {_LATER}, "
+            "item 6")
+    if devices is not None:
+        raise NotImplementedError(
+            f"devices= (sharded drains) arrives with {_LATER}, item 15")
+
+
+class _Snapshot:
+    """Host copy of a small device tensor taken now, read later.
+
+    On CUDA the copy goes to pinned memory behind an event, so the next
+    chunk can be launched before the value is read (the pipelined driver of
+    the reference, which dispatches chunk k+1 before reading chunk k's
+    bookkeeping). On the CPU it is a plain copy.
+    """
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t.clone()
+            self._event = None
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def simulate_batch(cfg: NocConfig, traffic: Traffic, *,
+                   count_headers: bool = True, max_cycles: int = 2_000_000,
+                   chunk: int = 4096, check_conservation: bool = False,
+                   devices=None, mc_nodes=None, backend: str = "auto",
+                   device: DeviceLike = None) -> List[SimResult]:
+    """Drain B traffic variants (leading axis) together.
+
+    The driver of ``repro.noc.sim.simulate_batch``: chunks of ``chunk``
+    cycles, pipelined (chunk k+1 is launched before chunk k's ejected counts
+    are read), lanes retire at their exact ``drain_cycle`` and the live
+    lanes are compacted into a narrower power-of-two batch once at most half
+    the rows are live (the reference's default schedule). The traffic is moved to ``device`` (CUDA unless the caller
+    passes ``device="cpu"``). ``backend``: ``"auto"`` (the Hopper kernel on
+    CUDA, the plain step on the CPU), ``"plain"`` or ``"cuda"``.
+    """
+    dev = resolve_device(device)
+    _unsupported(check_conservation, devices)
+    if traffic.length.dim() != 2:
+        raise ValueError("simulate_batch wants a leading variants axis; "
+                         "use simulate() for a single Traffic")
+    bk = _resolve_backend(backend, dev)
+    b, m = traffic.length.shape
+    if mc_nodes is None:
+        mc = np.broadcast_to(_mc_array(cfg, traffic, m, batched=True),
+                             (b, m)).copy()
+    else:
+        mc = np.ascontiguousarray(np.asarray(mc_nodes, np.int32))
+        if mc.shape != (b, m):
+            raise ValueError(f"mc_nodes must be ({b}, {m}), got {mc.shape}")
+        if mc.size and (mc.min() < 0 or mc.max() >= cfg.num_routers):
+            raise ValueError("mc_nodes out of range for a "
+                             f"{cfg.num_routers}-router config")
+    _validate_fields(cfg, traffic)
+    lengths_host = traffic.length.cpu().numpy()
+    totals = lengths_host.sum(axis=1).astype(np.int64)
+    wire = fuse_traffic(Traffic(*(t.to(dev) for t in traffic[:6]),
+                                num_packets=traffic.num_packets))
+    mc_dev = torch.as_tensor(mc, dtype=torch.int32, device=dev)
+    state = make_state(cfg, m, batch=b, device=dev)
+    key = _mesh_key(cfg)
+
+    def run(st, w, mcn):
+        return _run_chunk(st, w, mcn, key, count_headers, chunk, bk)
+
+    harvested = {}      # lane id -> host bookkeeping leaves
+
+    def harvest(st, pairs):
+        leaves = [st.link_bt.cpu().numpy(), st.link_flits.cpu().numpy(),
+                  st.inj_bt.cpu().numpy(), st.ejected.cpu().numpy(),
+                  st.cycle.cpu().numpy(), st.drained_at.cpu().numpy()]
+        for lane, row in pairs:
+            harvested[lane] = tuple(a[row] for a in leaves)
+
+    if totals.sum() == 0:   # empty traffic: nothing to drain
+        harvest(state, [(lane, lane) for lane in range(b)])
+    else:
+        live = list(range(b))                   # lanes still draining
+        prim = {lane: lane for lane in live}    # lane -> batch row
+        state = run(state, wire, mc_dev)
+        ej = _Snapshot(state.ejected)
+        nch = 1
+        while True:
+            state2 = run(state, wire, mc_dev)
+            nch += 1
+            e = ej.numpy()                      # ejected after chunk nch-1
+            ej2 = _Snapshot(state2.ejected)
+            done = [lane for lane in live if e[prim[lane]] >= totals[lane]]
+            if len(done) == len(live):
+                harvest(state2, [(lane, prim[lane]) for lane in live])
+                break
+            if (nch - 1) * chunk >= max_cycles:
+                lag = sorted(set(live) - set(done))
+                row = prim[lag[0]]
+                e2 = ej2.numpy()
+                raise _drain_timeout(
+                    f"NoC variants {lag} "
+                    f"({[int(e2[prim[x]]) for x in lag]}/"
+                    f"{[int(totals[x]) for x in lag]} flits; "
+                    f"diagnostic for variant {lag[0]})",
+                    nch * chunk, int(e2[row]), int(totals[lag[0]]),
+                    state2.count[row].cpu().numpy(),
+                    state2.inj_ptr[row].cpu().numpy(), lengths_host[lag[0]])
+            if done:
+                harvest(state2, [(lane, prim[lane]) for lane in done])
+                gone = set(done)
+                live = [lane for lane in live if lane not in gone]
+                cur = int(state2.ejected.shape[0])
+                target = _next_pow2(len(live))
+                if len(live) <= cur // 2 and target < cur:
+                    keep = [prim[lane] for lane in live]
+                    rows = keep + [keep[0]] * (target - len(keep))
+                    idx = torch.as_tensor(rows, dtype=torch.long, device=dev)
+                    state2 = state2.take(idx)
+                    wire = Wire(wire.wire.index_select(0, idx),
+                                wire.length.index_select(0, idx))
+                    mc_dev = mc_dev.index_select(0, idx)
+                    ej2 = _Snapshot(state2.ejected)
+                    prim = {lane: i for i, lane in enumerate(live)}
+            state, ej = state2, ej2
+
+    return [_result(harvested[i], int(totals[i])) for i in range(b)]
+
+
+def simulate(cfg: NocConfig, traffic: Traffic, *, count_headers: bool = True,
+             max_cycles: int = 2_000_000, chunk: int = 4096,
+             check_conservation: bool = False, mc_nodes=None,
+             backend: str = "auto", device: DeviceLike = None) -> SimResult:
+    """Run the NoC until one Traffic drains; per-link BT counts.
+
+    ``mc_nodes``: optional per-stream injection-node ids (``cfg.mc_nodes``
+    by default). ``backend`` and ``device`` as in :func:`simulate_batch`.
+    """
+    dev = resolve_device(device)
+    _unsupported(check_conservation, None)
+    if traffic.length.dim() != 1:
+        raise ValueError("simulate wants an unbatched Traffic; use "
+                         "simulate_batch() for a variants axis")
+    m = int(traffic.length.shape[0])
+    if mc_nodes is None:
+        mc = _mc_array(cfg, traffic, m, batched=False)
+    else:
+        mc = np.asarray(mc_nodes, np.int32)
+        if mc.shape != (m,):
+            raise ValueError(f"mc_nodes must have shape ({m},), "
+                             f"got {mc.shape}")
+        if mc.size and (mc.min() < 0 or mc.max() >= cfg.num_routers):
+            raise ValueError("mc_nodes out of range for a "
+                             f"{cfg.num_routers}-router config")
+    _validate_fields(cfg, traffic)
+    bk = _resolve_backend(backend, dev)
+    batched = Traffic(*(t[None].to(dev) for t in traffic[:6]),
+                      num_packets=traffic.num_packets)
+    wire = fuse_traffic(batched)
+    mc_dev = torch.as_tensor(mc[None], dtype=torch.int32, device=dev)
+    state = make_state(cfg, m, batch=1, device=dev)
+    total = int(traffic.length.sum())
+    while total:    # empty traffic: nothing to drain (and T may be 0)
+        state = _run_chunk(state, wire, mc_dev, _mesh_key(cfg),
+                           count_headers, chunk, bk)
+        if (int(state.ejected[0]) == total
+                or int(state.cycle[0]) >= max_cycles):
+            break
+    if int(state.ejected[0]) != total:
+        raise _drain_timeout(
+            "NoC", int(state.cycle[0]), int(state.ejected[0]), total,
+            state.count[0].cpu().numpy(), state.inj_ptr[0].cpu().numpy(),
+            traffic.length.cpu().numpy())
+    return _result((state.link_bt[0].cpu().numpy(),
+                    state.link_flits[0].cpu().numpy(),
+                    state.inj_bt[0].cpu().numpy(), state.ejected[0],
+                    state.cycle[0], state.drained_at[0]), total)

@@ -1,0 +1,231 @@
+"""2D-mesh NoC topology: coordinates, X-Y routing, MC placement.
+
+The port's copy of ``repro.noc.topology`` (host-side metadata, numpy). The
+paper's evaluated configurations (Sec. V-B) are a 4x4 mesh with 2 memory
+controllers and 8x8 meshes with 4 or 8 MCs, dimension-ordered X-Y routing.
+
+Port numbering (inputs and outputs symmetric):
+    0=N  1=E  2=S  3=W  4=Local (input side: injection from the MC/PE NI;
+                                 output side: ejection to the PE)
+
+Fault routing, the packet->MC affinity tables and the corner/interleaved
+MC placements belong to later slices of the port (ROADMAP queue A, items 9
+and 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["NocConfig", "PORT_N", "PORT_E", "PORT_S", "PORT_W", "PORT_LOCAL",
+           "NUM_PORTS", "OPPOSITE", "xy_route", "neighbor_table", "PAPER_NOCS",
+           "PLACEMENTS", "mc_placement", "make_noc", "mesh_by_name",
+           "mean_hop_counts", "xy_link_loads", "packet_mean_hops"]
+
+PORT_N, PORT_E, PORT_S, PORT_W, PORT_LOCAL = 0, 1, 2, 3, 4
+NUM_PORTS = 5
+# The flit leaving out-port p of a router enters in-port OPPOSITE[p] of the
+# neighbor: N<->S, E<->W.
+OPPOSITE = np.array([PORT_S, PORT_W, PORT_N, PORT_E, PORT_LOCAL])
+
+
+@dataclasses.dataclass(frozen=True)
+class NocConfig:
+    """Static NoC parameters (paper defaults: 4 VCs x 4-flit buffers)."""
+
+    rows: int
+    cols: int
+    mc_nodes: Tuple[int, ...]      # router ids hosting memory controllers
+    num_vcs: int = 4
+    vc_depth: int = 4
+    lanes: int = 16                # values per flit (512b/f32, 128b/fx8)
+
+    @property
+    def num_routers(self) -> int:
+        return self.rows * self.cols
+
+    @property
+    def num_mcs(self) -> int:
+        return len(self.mc_nodes)
+
+    @property
+    def pe_nodes(self) -> Tuple[int, ...]:
+        return tuple(r for r in range(self.num_routers) if r not in self.mc_nodes)
+
+    @property
+    def num_inter_router_links(self) -> int:
+        """Bidirectional inter-router links (112 for the paper's 8x8)."""
+        return self.rows * (self.cols - 1) + self.cols * (self.rows - 1)
+
+    def coords(self, node: int) -> Tuple[int, int]:
+        return divmod(node, self.cols)
+
+    def node(self, r: int, c: int) -> int:
+        return r * self.cols + c
+
+
+def xy_route(cfg: NocConfig) -> torch.Tensor:
+    """X-Y routing table: ``out_port[router, dest]`` (int32)."""
+    nr = cfg.num_routers
+    table = np.zeros((nr, nr), dtype=np.int32)
+    for cur in range(nr):
+        r, c = divmod(cur, cfg.cols)
+        for dst in range(nr):
+            dr, dc = divmod(dst, cfg.cols)
+            if dc > c:
+                table[cur, dst] = PORT_E
+            elif dc < c:
+                table[cur, dst] = PORT_W
+            elif dr > r:
+                table[cur, dst] = PORT_S
+            elif dr < r:
+                table[cur, dst] = PORT_N
+            else:
+                table[cur, dst] = PORT_LOCAL
+    return torch.from_numpy(table)
+
+
+def neighbor_table(cfg: NocConfig) -> torch.Tensor:
+    """``neighbor[router, out_port]`` -> downstream router id, -1 at the
+    mesh edge (int32)."""
+    nr = cfg.num_routers
+    nb = -np.ones((nr, NUM_PORTS), dtype=np.int32)
+    for cur in range(nr):
+        r, c = divmod(cur, cfg.cols)
+        if r > 0:
+            nb[cur, PORT_N] = cfg.node(r - 1, c)
+        if c < cfg.cols - 1:
+            nb[cur, PORT_E] = cfg.node(r, c + 1)
+        if r < cfg.rows - 1:
+            nb[cur, PORT_S] = cfg.node(r + 1, c)
+        if c > 0:
+            nb[cur, PORT_W] = cfg.node(r, c - 1)
+    return torch.from_numpy(nb)
+
+
+def _border(rows: int, cols: int):
+    # top row L->R, right col T->B, bottom row R->L, left col B->T;
+    # single-row/column meshes revisit the same coordinates going back
+    border = [(0, c) for c in range(cols)]
+    border += [(r, cols - 1) for r in range(1, rows)]
+    border += [(rows - 1, c) for c in range(cols - 2, -1, -1)]
+    border += [(r, 0) for r in range(rows - 2, 0, -1)]
+    return list(dict.fromkeys(border))
+
+
+def _edge_spread(rows: int, cols: int, n: int) -> Tuple[int, ...]:
+    """n MCs evenly spaced along the mesh boundary."""
+    border = _border(rows, cols)
+    step = len(border) / n
+    picks = [border[int(i * step)] for i in range(n)]
+    return tuple(r * cols + c for r, c in picks)
+
+
+PLACEMENTS = ("edge",)
+
+
+def mc_placement(rows: int, cols: int, num_mcs: int,
+                 strategy: str = "edge") -> Tuple[int, ...]:
+    """Router ids hosting the memory controllers: ``edge`` spreads them
+    evenly along the mesh boundary (the paper's layout). The reference's
+    ``corner`` and ``interleaved`` strategies arrive with the placement
+    slice of the port (ROADMAP queue A, item 9)."""
+    if strategy != "edge":
+        raise NotImplementedError(
+            f"MC placement {strategy!r} arrives with a later slice of the "
+            "port (ROADMAP queue A, item 9); supported: ('edge',)")
+    if num_mcs >= rows * cols:
+        raise ValueError(f"{num_mcs} MCs on a {rows}x{cols} mesh leave no "
+                         "PE routers to receive traffic")
+    boundary = rows * cols - max(rows - 2, 0) * max(cols - 2, 0)
+    if num_mcs < 1 or num_mcs > boundary:
+        raise ValueError(f"cannot place {num_mcs} MCs on a "
+                         f"{rows}x{cols} mesh boundary ({boundary} routers)")
+    return _edge_spread(rows, cols, num_mcs)
+
+
+def mean_hop_counts(cfg: NocConfig) -> np.ndarray:
+    """Per-MC mean Manhattan hop count to the config's PE routers."""
+    pes = np.asarray(cfg.pe_nodes, np.int64)
+    pr, pc = pes // cfg.cols, pes % cfg.cols
+    out = np.zeros(cfg.num_mcs)
+    for i, mc in enumerate(cfg.mc_nodes):
+        r, c = divmod(mc, cfg.cols)
+        out[i] = (np.abs(pr - r) + np.abs(pc - c)).mean() if pes.size else 0.0
+    return out
+
+
+def packet_mean_hops(cfg: NocConfig, num_packets: int) -> float:
+    """Exact mean MC<->PE Manhattan hop count over the first ``num_packets``
+    packets of the round-robin deal (packet g computes at PE
+    ``g % num_pes``, served by MC ``g % num_mcs``)."""
+    if num_packets <= 0:
+        return 0.0
+    pes = np.asarray(cfg.pe_nodes, np.int64)
+    mcs = np.asarray(cfg.mc_nodes, np.int64)
+    g = np.arange(num_packets, dtype=np.int64)
+    pe = pes[g % len(pes)]
+    mc = mcs[g % len(mcs)]
+    hops = (np.abs(pe // cfg.cols - mc // cfg.cols)
+            + np.abs(pe % cfg.cols - mc % cfg.cols))
+    return float(hops.mean())
+
+
+def xy_link_loads(cfg: NocConfig, lengths) -> np.ndarray:
+    """Expected flits per directed inter-router link, (NR, 4) by out-port,
+    with each MC's ``lengths[i]`` flits spread uniformly over the PEs."""
+    loads = np.zeros((cfg.num_routers, 4))
+    pes = cfg.pe_nodes
+    if not pes:
+        return loads
+    for i, mc in enumerate(cfg.mc_nodes):
+        if i >= len(lengths):
+            break
+        w = float(lengths[i]) / len(pes)
+        r0, c0 = divmod(mc, cfg.cols)
+        for pe in pes:
+            r1, c1 = divmod(pe, cfg.cols)
+            for c in range(c0, c1):                     # X first: east
+                loads[r0 * cfg.cols + c, PORT_E] += w
+            for c in range(c0, c1, -1):                 # or west
+                loads[r0 * cfg.cols + c, PORT_W] += w
+            for r in range(r0, r1):                     # then Y: south
+                loads[r * cfg.cols + c1, PORT_S] += w
+            for r in range(r0, r1, -1):                 # or north
+                loads[r * cfg.cols + c1, PORT_N] += w
+    return loads
+
+
+# The paper's three evaluated NoC configurations (Sec. V-B).
+PAPER_NOCS = {
+    "4x4_mc2": NocConfig(4, 4, _edge_spread(4, 4, 2)),
+    "8x8_mc4": NocConfig(8, 8, _edge_spread(8, 8, 4)),
+    "8x8_mc8": NocConfig(8, 8, _edge_spread(8, 8, 8)),
+}
+
+
+def make_noc(rows: int, cols: int, num_mcs: int, placement: str = "edge",
+             **kw) -> NocConfig:
+    """Any mesh size under any MC placement strategy."""
+    return NocConfig(rows, cols, mc_placement(rows, cols, num_mcs, placement),
+                     **kw)
+
+
+_MESH_NAME = re.compile(r"^(\d+)x(\d+)_mc(\d+)$")
+
+
+def mesh_by_name(name: str) -> NocConfig:
+    """Resolve a ``RxC_mcN`` mesh name; PAPER_NOCS names resolve exactly."""
+    if name in PAPER_NOCS:
+        return PAPER_NOCS[name]
+    m = _MESH_NAME.match(name)
+    if not m:
+        raise KeyError(
+            f"unknown mesh {name!r}: expected one of {sorted(PAPER_NOCS)} "
+            "or a 'RxC_mcN' spec")
+    rows, cols, mcs = map(int, m.groups())
+    return make_noc(rows, cols, mcs)

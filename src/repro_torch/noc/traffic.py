@@ -1,0 +1,511 @@
+"""DNN layer traffic -> packetized flit streams for the NoC simulator.
+
+The port of ``repro.noc.traffic`` (request phase). Memory controllers fetch
+(input, weight) operand streams, run them through the ordering unit (a
+WireTransform) and packetize them - inputs in the left half-flit, weights in
+the right (Fig. 2). A packet carries the operands of one neuron (K pairs)
+plus one header flit; the ordering window is the packet payload.
+
+Payload words are computed on the device for all packets of a layer at
+once (``WireTransform.order_packets``); the packetization skeleton - the
+closed-form MC/PE/VC round-robin of the global packet id, headers, META
+bitfields, stream offsets - is host-side numpy, as in the reference, and
+the payload scatter into the per-MC streams runs on the device.
+
+The result phase, affinity tables as a sweep axis and MSR compression
+arrive with later slices (ROADMAP queue A, items 9 and 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .._device import DeviceLike, resolve_device
+from ..core.bits import words32
+from ..core.wire import WireTransform
+from .sim import META_PAYLOAD, META_TAIL, Traffic
+from .topology import NocConfig
+
+__all__ = ["LayerTraffic", "build_traffic", "build_traffic_batch",
+           "build_traffic_streamed", "build_traffic_streamed_multi",
+           "ordered_payloads", "ordered_payloads_streamed", "payload_shapes",
+           "assemble_traffic", "TrafficAssembler", "stream_lengths",
+           "pad_traffic_length", "stack_traffics", "conv_layer_traffic",
+           "linear_layer_traffic"]
+
+# One sweep variant: an ordering transform plus an optional value->wire-dtype
+# quantizer (None transmits raw float32 words).
+Variant = Tuple[WireTransform, Optional[Callable[[torch.Tensor], torch.Tensor]]]
+
+
+@dataclasses.dataclass
+class LayerTraffic:
+    """(input, weight) operand pairs for every neuron of one layer.
+
+    inputs:  (num_neurons, k) - receptive-field values per neuron
+    weights: (num_neurons, k) - the matching kernel values
+    """
+
+    inputs: torch.Tensor
+    weights: torch.Tensor
+
+    def __post_init__(self):
+        if self.inputs.shape != self.weights.shape:
+            raise ValueError("inputs/weights must be (num_neurons, k) alike")
+
+
+def conv_layer_traffic(x: torch.Tensor, w: torch.Tensor) -> LayerTraffic:
+    """im2col a conv layer: x (H, W, Cin), w (kh, kw, Cin, Cout), VALID conv.
+
+    Neuron = (output position, output channel); k = kh*kw*Cin. The patch
+    columns come out ordered (Cin, kh, kw) - ``F.unfold`` on NCHW gives the
+    same order as the reference's ``conv_general_dilated_patches`` - while
+    the weight columns are ``w.reshape(k, cout)``, ordered (kh, kw, Cin).
+    For Cin > 1 the pairing inside a packet is therefore not
+    position-aligned; this reproduces the reference exactly (ROADMAP C6).
+    """
+    kh, kw, cin, cout = w.shape
+    patches = F.unfold(x.permute(2, 0, 1)[None].to(torch.float32),
+                       (kh, kw))[0].T                       # (oh*ow, k)
+    npos, k = patches.shape
+    patches = patches.to(x.dtype)
+    wcol = w.reshape(k, cout).T                             # (Cout, k)
+    # neuron ordering: all positions of channel 0, then channel 1, ...
+    inputs = patches.repeat(cout, 1)
+    weights = wcol.repeat_interleave(npos, dim=0)
+    return LayerTraffic(inputs, weights)
+
+
+def linear_layer_traffic(x: torch.Tensor, w: torch.Tensor) -> LayerTraffic:
+    """x (k,), w (out, k): one packet per output unit."""
+    out, k = w.shape
+    return LayerTraffic(x[None, :].expand(out, k), w)
+
+
+def _subsample(layer: LayerTraffic, max_packets: Optional[int],
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic-stride neuron subsampling (the reference's)."""
+    inp = layer.inputs.to(device)
+    wgt = layer.weights.to(device)
+    n = int(inp.shape[0])
+    if max_packets is not None and n > max_packets:
+        stride = n // max_packets
+        idx = torch.arange(0, stride * max_packets, stride, device=device)
+        inp, wgt = inp[idx], wgt[idx]
+    return inp, wgt
+
+
+def _pack_paired_rows(oi: torch.Tensor, ow: torch.Tensor,
+                      lanes: int) -> torch.Tensor:
+    """Row-batched ``pack_paired``: (n, k) ordered operands -> (n, F, L)
+    int32 words, inputs left, weights right, zero-padded per packet."""
+    if lanes % 2:
+        raise ValueError("paired packing needs an even lane count")
+    half = lanes // 2
+    n, k = oi.shape
+    nf = -(-k // half)
+    ui = F.pad(words32(oi), (0, nf * half - k)).reshape(n, nf, half)
+    uw = F.pad(words32(ow), (0, nf * half - k)).reshape(n, nf, half)
+    return torch.cat([ui, uw], dim=2)
+
+
+def _payload_words(inp: torch.Tensor, wgt: torch.Tensor,
+                   transform: WireTransform, quantizer,
+                   lanes: int) -> torch.Tensor:
+    """Ordered payload flits of every packet: (n, F, L) int32."""
+    if quantizer is not None:
+        inp, wgt = quantizer(inp), quantizer(wgt)
+    oi, ow = transform.order_packets(inp, wgt, lanes)
+    return _pack_paired_rows(oi, ow, lanes)
+
+
+def _probe_shape(inp: torch.Tensor, wgt: torch.Tensor,
+                 variants: Sequence[Variant], lanes: int) -> int:
+    """Payload flits per packet, probed on one packet per variant."""
+    i1 = inp[:1] if inp.shape[0] else torch.zeros(
+        (1,) + tuple(inp.shape[1:]), dtype=inp.dtype, device=inp.device)
+    w1 = wgt[:1] if wgt.shape[0] else torch.zeros(
+        (1,) + tuple(wgt.shape[1:]), dtype=wgt.dtype, device=wgt.device)
+    shapes = {tuple(_payload_words(i1, w1, tr, q, lanes).shape[1:])
+              for tr, q in variants}
+    if len(shapes) != 1:
+        raise ValueError(f"variants disagree on flit geometry: {sorted(shapes)}")
+    (fpay, _), = shapes
+    return int(fpay)
+
+
+def ordered_payloads(
+    layers: Sequence[LayerTraffic],
+    lanes: int,
+    variants: Sequence[Variant],
+    *,
+    max_packets_per_layer: Optional[int] = None,
+    device: DeviceLike = None,
+) -> List[torch.Tensor]:
+    """Ordered payload words per layer, stacked over variants: (B, n, F, L)
+    int32 (the mesh-independent half of packetization)."""
+    if not variants:
+        raise ValueError("need at least one (transform, quantizer) variant")
+    dev = resolve_device(device)
+    out: List[torch.Tensor] = []
+    for layer in layers:
+        inp, wgt = _subsample(layer, max_packets_per_layer, dev)
+        if inp.shape[0] == 0:
+            fpay = _probe_shape(inp, wgt, variants, lanes)
+            out.append(torch.zeros((len(variants), 0, fpay, lanes),
+                                   dtype=torch.int32, device=dev))
+            continue
+        per_variant = [_payload_words(inp, wgt, tr, q, lanes)
+                       for tr, q in variants]
+        shapes = {tuple(w.shape) for w in per_variant}
+        if len(shapes) != 1:
+            raise ValueError(
+                f"variants disagree on flit geometry: {sorted(shapes)}")
+        out.append(torch.stack(per_variant))
+    return out
+
+
+def payload_shapes(
+    layers: Sequence[LayerTraffic],
+    lanes: int,
+    variants: Sequence[Variant],
+    *,
+    max_packets_per_layer: Optional[int] = None,
+    device: DeviceLike = None,
+) -> List[Tuple[int, int]]:
+    """Per-layer ``(n_packets, payload_flits)``, probing one packet."""
+    if not variants:
+        raise ValueError("need at least one (transform, quantizer) variant")
+    dev = resolve_device(device)
+    out = []
+    for layer in layers:
+        inp, wgt = _subsample(layer, max_packets_per_layer, dev)
+        out.append((int(inp.shape[0]), _probe_shape(inp, wgt, variants,
+                                                    lanes)))
+    return out
+
+
+def ordered_payloads_streamed(
+    layers: Sequence[LayerTraffic],
+    lanes: int,
+    variants: Sequence[Variant],
+    *,
+    chunk_packets: int = 4096,
+    max_packets_per_layer: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Iterator[Tuple[int, int, torch.Tensor]]:
+    """Generator form of :func:`ordered_payloads` with a bounded working
+    set: yields ``(layer_index, start_packet, words (B, c, F, L))``.
+
+    Quantizers see the whole layer first (a fixed-point scale must not
+    depend on the chunking); the transform is per-packet, so the chunks
+    concatenate to the one-shot result exactly.
+    """
+    if not variants:
+        raise ValueError("need at least one (transform, quantizer) variant")
+    if chunk_packets < 1:
+        raise ValueError(f"chunk_packets must be >= 1, got {chunk_packets}")
+    dev = resolve_device(device)
+    for li, layer in enumerate(layers):
+        inp, wgt = _subsample(layer, max_packets_per_layer, dev)
+        n = int(inp.shape[0])
+        if n == 0:
+            continue
+        ops = [(inp, wgt) if q is None else (q(inp), q(wgt))
+               for _, q in variants]
+        for start in range(0, n, chunk_packets):
+            c = min(chunk_packets, n - start)
+            per_variant = [
+                _payload_words(qi[start:start + c], qw[start:start + c], tr,
+                               None, lanes)
+                for (tr, _), (qi, qw) in zip(variants, ops)]
+            shapes = {tuple(w.shape) for w in per_variant}
+            if len(shapes) != 1:
+                raise ValueError(
+                    f"variants disagree on flit geometry: {sorted(shapes)}")
+            yield li, start, torch.stack(per_variant)
+
+
+class _McSchedule:
+    """Closed-form packet->MC schedule, elementwise in the global packet id:
+    packet g is served by MC ``g % M``. (The reference also takes a periodic
+    affinity table here; that arrives with the affinity slice.)"""
+
+    def __init__(self, m: int):
+        self.m = m
+
+    def mc(self, g):
+        """Serving-MC stream index of packet(s) ``g``."""
+        return g % self.m
+
+    def before(self, g):
+        """``#{g' < g : mc(g') == mc(g)}`` - earlier packets at g's MC."""
+        return g // self.m
+
+    def counts_before(self, g: int) -> np.ndarray:
+        """Per-MC packet counts over ``[0, g)`` - an ``(M,)`` vector."""
+        return g // self.m + (np.arange(self.m) < g % self.m)
+
+
+def stream_lengths(layer_shapes: Sequence[Tuple[int, int]],
+                   m: int) -> np.ndarray:
+    """Per-MC flit counts for layers of ``(n_packets, payload_flits)``."""
+    sched = _McSchedule(m)
+    lengths = np.zeros(m, np.int64)
+    g0 = 0
+    for n, fpay in layer_shapes:
+        counts = sched.counts_before(g0 + n) - sched.counts_before(g0)
+        lengths += counts * (fpay + 1)
+        g0 += n
+    return lengths
+
+
+def pad_traffic_length(traffic: Traffic, t: int) -> Traffic:
+    """Pad the per-MC stream axis T with empty (never injected) flits."""
+    cur = int(traffic.words.shape[-2])
+    if t <= cur:
+        return traffic
+    extra = t - cur
+    return traffic._replace(
+        words=F.pad(traffic.words, (0, 0, 0, extra)),
+        dest=F.pad(traffic.dest, (0, extra)),
+        meta=F.pad(traffic.meta, (0, extra)),
+        vc=F.pad(traffic.vc, (0, extra)),
+        pkt=F.pad(traffic.pkt, (0, extra)))
+
+
+def stack_traffics(traffics: Sequence[Traffic]) -> Traffic:
+    """Stack unbatched Traffics into one batched Traffic (stream axes padded
+    to the longest T; ``num_packets`` becomes the max)."""
+    if not traffics:
+        raise ValueError("need at least one Traffic to stack")
+    t = max(int(tr.words.shape[-2]) for tr in traffics)
+    traffics = [pad_traffic_length(tr, t) for tr in traffics]
+    return Traffic(*(torch.stack([tr[i] for tr in traffics])
+                     for i in range(6)),
+                   num_packets=max(int(tr.num_packets) for tr in traffics))
+
+
+class TrafficAssembler:
+    """Incremental per-MC stream writer, shared by the one-shot and streamed
+    paths (bit-identical by construction).
+
+    With global packet id g: ``mc(g) = g % M``, ``dest(g) = pes[g %
+    num_pes]``, ``vc(g) = (g // M) % V``, and a packet's flit offset in its
+    MC stream is the running flit count of earlier packets at that MC - all
+    elementwise in g, so a layer may arrive in any number of chunks.
+    """
+
+    def __init__(self, layer_shapes: Sequence[Tuple[int, int]],
+                 cfg: NocConfig, num_streams: Optional[int] = None,
+                 num_variants: int = 1, device: DeviceLike = None):
+        m, lanes = cfg.num_mcs, cfg.lanes
+        if num_streams is not None and num_streams < m:
+            raise ValueError(
+                f"cannot pad {m} MC streams down to {num_streams}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.nv = num_variants
+        self.num_streams = num_streams
+        self.shapes = [(int(n), int(f)) for n, f in layer_shapes]
+        self.pes = np.asarray(cfg.pe_nodes, np.int64)
+        self.sched = _McSchedule(m)
+        ns = [n for n, _ in self.shapes]
+        self.layer_g0 = np.concatenate([[0], np.cumsum(ns)]).astype(np.int64)
+        self.layer_cb = [self.sched.counts_before(int(g0))
+                         for g0 in self.layer_g0]
+        self.layer_base = [np.zeros(m, np.int64)]
+        lengths = np.zeros(m, np.int64)
+        for (n, fpay), cb0, cb1 in zip(self.shapes, self.layer_cb,
+                                       self.layer_cb[1:]):
+            lengths = lengths + (cb1 - cb0) * (fpay + 1)
+            self.layer_base.append(lengths.copy())
+        self.lengths = lengths
+        t = int(lengths.max()) if m else 0
+        self.words = torch.zeros((self.nv, m, t, lanes), dtype=torch.int32,
+                                 device=self.device)
+        self.dest = np.zeros((m, t), np.int32)
+        self.meta = np.zeros((m, t), np.int32)
+        self.vc = np.zeros((m, t), np.int32)
+        self.pkt = np.zeros((m, t), np.int32)
+
+    def add_chunk(self, layer: int, start: int, words: torch.Tensor) -> None:
+        """Scatter payload ``words`` (B, c, F, L) for packets
+        ``[start, start + c)`` of ``layer`` into the per-MC streams."""
+        cfg, lanes = self.cfg, self.cfg.lanes
+        n_l, fpay = self.shapes[layer]
+        if words.shape[0] != self.nv:
+            raise ValueError(f"payload chunk has {words.shape[0]} variants, "
+                             f"assembler was sized for {self.nv}")
+        if words.shape[2] != fpay or words.shape[3] != lanes:
+            raise ValueError(
+                f"payload chunk {tuple(words.shape[2:])} does not match "
+                f"layer {layer} geometry ({fpay}, {lanes})")
+        c = words.shape[1]
+        if start < 0 or start + c > n_l:
+            raise ValueError(f"chunk [{start}, {start + c}) out of range for "
+                             f"layer {layer} with {n_l} packets")
+        if c == 0:
+            return
+        f = fpay + 1                                    # + header flit
+        gids = self.layer_g0[layer] + start + np.arange(c, dtype=np.int64)
+        mcs = self.sched.mc(gids)
+        dest = self.pes[gids % len(self.pes)].astype(np.int32)
+        before = self.sched.before(gids)
+        vc = (before % cfg.num_vcs).astype(np.int32)
+        rank = before - self.layer_cb[layer][mcs]
+        flit0 = self.layer_base[layer][mcs] + rank * f  # (c,) stream offset
+        cols = (flit0[:, None] + np.arange(f)[None, :]).reshape(-1)
+        rows = np.repeat(mcs, f)
+
+        # Header synthesis: word 0 = dest, 1 = packet id, 2 = payload flits.
+        hdr = np.zeros((c, lanes), np.int64)
+        hdr[:, 0] = dest
+        hdr[:, 1] = gids & 0xFFFFFFFF
+        hdr[:, 2] = fpay
+        hdr = hdr.astype(np.uint32).view(np.int32)
+        full = torch.empty((self.nv, c, f, lanes), dtype=torch.int32,
+                           device=self.device)
+        full[:, :, 0, :] = torch.as_tensor(hdr, device=self.device)
+        full[:, :, 1:, :] = words.to(device=self.device, dtype=torch.int32)
+
+        # META bitfield: header 0, payload flits PAYLOAD, last flit |= TAIL.
+        md = np.full((f,), META_PAYLOAD, np.int32)
+        md[0] = 0
+        md[-1] |= META_TAIL
+
+        rows_t = torch.as_tensor(rows, device=self.device)
+        cols_t = torch.as_tensor(cols, device=self.device)
+        self.words[:, rows_t, cols_t] = full.reshape(self.nv, c * f, lanes)
+        self.dest[rows, cols] = np.repeat(dest, f)
+        self.meta[rows, cols] = np.broadcast_to(md, (c, f)).reshape(-1)
+        self.vc[rows, cols] = np.repeat(vc, f)
+        self.pkt[rows, cols] = np.repeat(gids.astype(np.int32), f)
+
+    def finish(self) -> Traffic:
+        """Batched Traffic over everything scattered so far (empty padding
+        streams appended per ``num_streams``)."""
+        m = self.cfg.num_mcs
+        extra = (self.num_streams - m if self.num_streams is not None
+                 else 0)
+        words = F.pad(self.words, (0, 0, 0, 0, 0, extra))
+        pad2 = ((0, extra), (0, 0))
+
+        def tile(a):
+            t = torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+            return t.expand((self.nv,) + tuple(t.shape))
+
+        return Traffic(
+            words=words, dest=tile(np.pad(self.dest, pad2)),
+            meta=tile(np.pad(self.meta, pad2)),
+            vc=tile(np.pad(self.vc, pad2)), pkt=tile(np.pad(self.pkt, pad2)),
+            length=tile(np.pad(self.lengths, (0, extra)).astype(np.int32)),
+            num_packets=int(self.layer_g0[-1]))
+
+
+def assemble_traffic(layer_words: Sequence[torch.Tensor], cfg: NocConfig,
+                     num_streams: Optional[int] = None,
+                     num_variants: Optional[int] = None,
+                     device: DeviceLike = None) -> Traffic:
+    """Scatter per-layer (B, n, F, L) payloads into batched per-MC streams."""
+    nv = layer_words[0].shape[0] if layer_words else (num_variants or 1)
+    for words_v in layer_words:
+        if words_v.shape[3] != cfg.lanes:
+            raise ValueError(f"payloads built for {words_v.shape[3]} lanes, "
+                             f"config has {cfg.lanes}")
+    asm = TrafficAssembler([(w.shape[1], w.shape[2]) for w in layer_words],
+                           cfg, num_streams=num_streams, num_variants=nv,
+                           device=device)
+    for li, words_v in enumerate(layer_words):
+        asm.add_chunk(li, 0, words_v)
+    return asm.finish()
+
+
+def build_traffic_streamed_multi(
+    layers: Sequence[LayerTraffic],
+    cfgs: Sequence[NocConfig],
+    variants: Sequence[Variant],
+    *,
+    chunk_packets: int = 4096,
+    num_streams: Optional[int] = None,
+    max_packets_per_layer: Optional[int] = None,
+    shapes: Optional[Sequence[Tuple[int, int]]] = None,
+    device: DeviceLike = None,
+) -> List[Traffic]:
+    """Streamed packetization for several configs of one lane width at once:
+    each chunk is ordered once and scattered into every config's streams."""
+    if not cfgs:
+        raise ValueError("need at least one config")
+    if len({c.lanes for c in cfgs}) != 1:
+        raise ValueError("streamed combos must share the flit lane width")
+    dev = resolve_device(device)
+    if shapes is None:
+        shapes = payload_shapes(layers, cfgs[0].lanes, variants,
+                                max_packets_per_layer=max_packets_per_layer,
+                                device=dev)
+    asms = [TrafficAssembler(shapes, cfg, num_streams=num_streams,
+                             num_variants=len(variants), device=dev)
+            for cfg in cfgs]
+    for li, start, words in ordered_payloads_streamed(
+            layers, cfgs[0].lanes, variants, chunk_packets=chunk_packets,
+            max_packets_per_layer=max_packets_per_layer, device=dev):
+        for asm in asms:
+            asm.add_chunk(li, start, words)
+    return [asm.finish() for asm in asms]
+
+
+def build_traffic_streamed(
+    layers: Sequence[LayerTraffic],
+    cfg: NocConfig,
+    variants: Sequence[Variant],
+    *,
+    chunk_packets: int = 4096,
+    num_streams: Optional[int] = None,
+    max_packets_per_layer: Optional[int] = None,
+    shapes: Optional[Sequence[Tuple[int, int]]] = None,
+    device: DeviceLike = None,
+) -> Traffic:
+    """Packetize full layers in fixed-size packet chunks; equal to
+    :func:`build_traffic_batch` with a bounded working set."""
+    return build_traffic_streamed_multi(
+        layers, [cfg], variants, chunk_packets=chunk_packets,
+        num_streams=num_streams, max_packets_per_layer=max_packets_per_layer,
+        shapes=shapes, device=device)[0]
+
+
+def build_traffic_batch(
+    layers: Sequence[LayerTraffic],
+    cfg: NocConfig,
+    variants: Sequence[Variant],
+    *,
+    max_packets_per_layer: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Traffic:
+    """Packetize ``layers`` once per (transform, quantizer) variant into a
+    batched Traffic with a leading variants axis."""
+    dev = resolve_device(device)
+    payloads = ordered_payloads(layers, cfg.lanes, variants,
+                                max_packets_per_layer=max_packets_per_layer,
+                                device=dev)
+    return assemble_traffic(payloads, cfg, num_variants=len(variants),
+                            device=dev)
+
+
+def build_traffic(
+    layers: Sequence[LayerTraffic],
+    cfg: NocConfig,
+    transform: WireTransform,
+    *,
+    quantizer=None,
+    max_packets_per_layer: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Traffic:
+    """Packetize layers under one WireTransform into per-MC streams."""
+    batch = build_traffic_batch(layers, cfg, [(transform, quantizer)],
+                                max_packets_per_layer=max_packets_per_layer,
+                                device=device)
+    return batch.variant(0)

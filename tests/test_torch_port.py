@@ -1,0 +1,158 @@
+"""The port's own contract, without the reference:
+
+* ``import repro_torch`` (every module) leaves ``jax`` and ``repro`` out of
+  ``sys.modules``, and no port source names them in an import;
+* an entry point given no device raises on a machine without CUDA;
+* on a CUDA machine, each Hopper kernel equals its plain PyTorch version
+  exactly (marked ``cuda``; run them on the card with
+  ``python -m pytest -q -m cuda tests/test_torch_port.py``).
+"""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch", reason="the port's tests need torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+PORT = os.path.join(SRC, "repro_torch")
+
+
+def _port_modules():
+    import repro_torch
+    return ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {SRC!r})\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_no_port_source_imports_jax_or_repro():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    hits = []
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    if pat.search(fh.read()):
+                        hits.append(os.path.join(root, f))
+    assert not hits, hits
+
+
+@pytest.mark.skipif(torch.cuda.device_count() > 0,
+                    reason="a CUDA device is present, so cuda is the default")
+def test_entry_points_without_device_raise_on_cpu_machine():
+    from repro_torch.data import glyph_batch
+    from repro_torch.noc import SweepGrid, mesh_by_name, run_sweep, simulate
+    from repro_torch.noc.sim import make_state
+    from repro_torch.noc.traffic import build_traffic_batch
+    cfg = mesh_by_name("2x2_mc1")
+    calls = [
+        lambda: glyph_batch(torch.Generator(), 1),
+        lambda: make_state(cfg, 1),
+        lambda: build_traffic_batch([], cfg, []),
+        lambda: run_sweep(SweepGrid(), lambda _n: []),
+        lambda: simulate(cfg, None),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+# --------------------------------------------------------------------------
+# On the card: each kernel against its plain version, exact equality.
+
+cuda = pytest.mark.skipif(torch.cuda.device_count() < 1,
+                          reason="needs a CUDA device")
+
+
+@pytest.mark.cuda
+@cuda
+@pytest.mark.parametrize("n", [1, 3, 1000, 1 << 16])
+def test_popcount_kernel_equals_plain(n):
+    from repro_torch.kernels import popcount as k, ref
+    rng = np.random.default_rng(n)
+    w = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    w[:2] = [0xFFFFFFFF, 0x80000000][:min(n, 2)]
+    x = torch.from_numpy(w.view(np.int32)).cuda()
+    got = k.popcount_words(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref.popcount_ref(x.cpu()))
+    # unaligned start: the scalar tail path
+    if n > 4:
+        assert torch.equal(k.popcount_words(x[1:]).cpu(),
+                           ref.popcount_ref(x[1:].cpu()))
+
+
+@pytest.mark.cuda
+@cuda
+@pytest.mark.parametrize("f,lanes", [(1, 16), (2, 1), (17, 16), (4097, 16),
+                                     (9, 130)])
+def test_bt_count_kernel_equals_plain(f, lanes):
+    from repro_torch.kernels import bt_count as k, ref
+    rng = np.random.default_rng(f * lanes)
+    w = rng.integers(0, 2**32, (f, lanes), dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(w.view(np.int32)).cuda()
+    got = k.bt_boundaries(x)
+    torch.cuda.synchronize()
+    assert got.shape == (f - 1,)
+    assert torch.equal(got.cpu(), ref.bt_boundaries_ref(x.cpu()))
+
+
+@pytest.mark.cuda
+@cuda
+@pytest.mark.parametrize("mesh,headers", [("2x2_mc1", True),
+                                          ("4x4_mc2", True),
+                                          ("4x4_mc2", False),
+                                          ("8x8_mc4", True)])
+def test_router_kernel_equals_plain_step(mesh, headers):
+    from repro_torch.kernels import ref, router_step as k
+    from repro_torch.noc import sim
+    from repro_torch.noc.topology import mesh_by_name
+    cfg = mesh_by_name(mesh)
+    key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
+    t = _synthetic_traffic(cfg, batch=3, packets=40, seed=5)
+    wire = sim.fuse_traffic(t)
+    mc = torch.as_tensor(np.broadcast_to(np.asarray(cfg.mc_nodes, np.int32),
+                                         (3, cfg.num_mcs)).copy(),
+                         device="cuda")
+    a = sim.make_state(cfg, cfg.num_mcs, batch=3, device="cuda")
+    b = sim.SimState(*(leaf.clone() for leaf in a))
+    nr = cfg.num_routers
+    for _ in range(4):
+        a = k.router_step(a, wire, mc, 64, key, headers)
+        b = ref.router_step_ref(b, wire, mc, 64, key, headers)
+        torch.cuda.synchronize()
+        for name, x, y in zip(a._fields, a, b):
+            if name == "fifo":
+                x, y = x[:, :nr], y[:, :nr]     # phantom row may differ
+            assert torch.equal(x, y), name
+
+
+def _synthetic_traffic(cfg, batch, packets, seed):
+    """Random payload words on the packetizer's real skeleton."""
+    from repro_torch.noc.traffic import TrafficAssembler
+    rng = np.random.default_rng(seed)
+    asm = TrafficAssembler([(packets, 5)], cfg, num_variants=batch,
+                           device="cuda")
+    w = rng.integers(0, 2**32, (batch, packets, 5, cfg.lanes),
+                     dtype=np.uint64).astype(np.uint32)
+    asm.add_chunk(0, 0, torch.from_numpy(w.view(np.int32)).cuda())
+    return asm.finish()

@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py [--out REPORT.json]
 
-Drives the port's main path on the card and holds every Hopper kernel of
-that path against its plain PyTorch version:
+Drives the port's paths on the card and holds every Hopper kernel of
+those paths against its plain PyTorch version:
 
  1. device   - needs CUDA; prints the card's name and power limit;
- 2. build    - builds the router-step, popcount and BT-counter kernels from
-               ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+ 2. build    - builds the six kernels (router step, popcount, BT counter,
+               window sort, ordering unit, chain select) from
+               ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
+               nvcc per source, all started together;
  3. kernels  - each kernel == its plain version, exactly: popcount on 2^20
                words, the BT counter on (4097, 16) words, the router step
                over 512 cycles of a synthetic 8x8 batch (all 13 state leaves
                after every 128-cycle chunk; the FIFO's phantom router row
-               excluded);
+               excluded), the window sort on tie-heavy keys at (512, 512)
+               and (37, 128) with float32 payload bits, the ordering unit at
+               (512, 512), the chain select on 1-2 planes at W = 28, 152,
+               400 and 4096;
  4. no-NoC   - the paper's Tab. I path: the trained LeNet's weight stream
                under O0 and O1 (stable, pattern), float32 and fixed8, BT
                measured through the BT-counter kernel;
@@ -20,12 +25,20 @@ that path against its plain PyTorch version:
                full width (every packet of the inference, streamed) over
                4x4_mc2, 8x8_mc4, 8x8_mc8 x float32/fixed8 x stable/pattern x
                O0/O1/O2, drained through the router kernel;
- 6. parity   - the pinned-budget sweep (8 packets per layer, chunk 128)
-               through the kernel and through the plain step: equal rows;
- 7. launches - every kernel launched at least once by phases 4-5 (counts
-               reset just before them);
- 8. timing   - each kernel at the main path's shapes beside its plain
-               version and its bound on this card.
+ 6. O3       - the same full-width sweep with O0/O3/O3a: every chain step
+               through the chain-select kernel;
+ 7. ordering unit - the ``sort_windows_desc`` and ``order_unit`` entry
+               points at (512, 512) and on LeNet conv2's operands, each
+               result == the plain version's;
+ 8. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-7, read after);
+ 9. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+               O0/O1/O2 through the router kernel and through the plain
+               step, O0/O3/O3a through every kernel on the card and through
+               the plain versions on the CPU: equal rows;
+10. timing   - each kernel at its path's shapes beside its plain version,
+               its bound on this card and, where one exists, the PyTorch
+               call computing the same function.
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
@@ -52,7 +65,10 @@ MESHES = ("4x4_mc2", "8x8_mc4", "8x8_mc8")
 AXES = dict(meshes=MESHES, transforms=("O0", "O1", "O2"),
             tiebreaks=("stable", "pattern"), precisions=("float32", "fixed8"),
             models=("lenet",))
+AXES_O3 = dict(AXES, transforms=("O0", "O3", "O3a"))
 PINNED = dict(max_packets_per_layer=8, chunk=128)
+# The chain's selection penalties (repro_torch.kernels.min_hamming).
+PENALTIES = np.array([0, 1 << 28, 1 << 30, (1 << 30) + (1 << 28)], np.int32)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
 # and the non-tensor 32-bit rate, used for 32-bit integer ALU work too.
 HBM_BYTES_PER_S = 3.35e12
@@ -120,6 +136,40 @@ def synthetic_traffic(cfg, batch: int, packets: int, seed: int):
     return asm.finish()
 
 
+def random_words(rng, shape):
+    import torch
+    return torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).cuda()
+
+
+def same_bits(a, b) -> bool:
+    """Equal shape, dtype and bit pattern (float payloads compared as
+    their words)."""
+    import torch
+    from repro_torch.core.bits import words32
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(words32(a), words32(b)))
+
+
+def max_err(pairs) -> int:
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in pairs)
+
+
+def check_sweep(rep, label: str, rows: int) -> None:
+    if len(rep.rows) != rows:
+        fail(f"{label}: expected {rows} rows, got {len(rep.rows)}")
+    if not rep.stats["ejected_equals_injected"]:
+        fail(f"{label}: a lane did not eject every injected flit")
+    for r in rep.rows:
+        vals = [r["total_bt"], r["cycles"], r["reduction_pct"],
+                r["adjusted_reduction_pct"]]
+        if not all(math.isfinite(v) for v in vals) or r["total_bt"] <= 0:
+            fail(f"{label}: bad row {r}")
+        if r["transform"] == "O0" and r["reduction_pct"] != 0:
+            fail(f"{label}: O0 row is not its own baseline")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(REPO, "build",
@@ -137,10 +187,13 @@ def main() -> None:
         print(f"card: {card} | torch {torch.__version__} cuda "
               f"{torch.version.cuda} | {kind}", flush=True)
 
+    import torch.nn.functional as F
     from repro_torch.core import flits, wire
     from repro_torch.core.bits import words32
     from repro_torch.data import glyph_batch
-    from repro_torch.kernels import bt_count, ops, popcount, ref, router_step
+    from repro_torch.kernels import (bitonic_sort, bt_count, chain_select,
+                                     ops, order_unit, popcount, ref,
+                                     router_step)
     from repro_torch.models import LeNet, load_checkpoint
     from repro_torch.noc import SweepGrid, run_sweep, sim
     from repro_torch.noc.topology import mesh_by_name
@@ -193,6 +246,45 @@ def main() -> None:
                          f"chunk {chunk_i}")
         print(f"  router kernel == plain step over 512 cycles, 6 lanes, "
               f"{int(a.ejected.sum())} flits ejected", flush=True)
+        # Window sort: tie-heavy keys (popcounts in [0, 33), as
+        # benchmarks/ordering_throughput.py makes them); the (37, 128) case
+        # carries a float32 payload whose words have bit 31 set.
+        neg = -np.abs(rng.standard_normal((37, 128))).astype(np.float32) - 1
+        cases = [
+            (torch.from_numpy(rng.integers(0, 33, (512, 512))
+                              .astype(np.int32)).cuda(),
+             [random_words(rng, (512, 512)).view(torch.uint32)]),
+            (torch.from_numpy(rng.integers(0, 33, (37, 128))
+                              .astype(np.int32)).cuda(),
+             [random_words(rng, (37, 128)), torch.from_numpy(neg).cuda()]),
+        ]
+        for keys, pays in cases:
+            got = ops.sort_windows_desc(keys, *pays)
+            want = ops.sort_windows_desc(keys.cpu(), *(p.cpu() for p in pays))
+            torch.cuda.synchronize()
+            if not all(same_bits(g.cpu(), w) for g, w in zip(got, want)):
+                fail(f"window-sort kernel != plain network at "
+                     f"{tuple(keys.shape)} with {len(pays)} payloads")
+        # Ordering unit on uint32 words.
+        v = random_words(rng, (512, 512)).view(torch.uint32)
+        got, want = ops.order_unit(v), ops.order_unit(v.cpu())
+        torch.cuda.synchronize()
+        if not all(same_bits(g.cpu(), w) for g, w in zip(got, want)):
+            fail("ordering-unit kernel != plain version at (512, 512)")
+        # Chain select: 1 and 2 planes over the chain's penalty set.
+        for w_ in (28, 152, 400, 4096):
+            r_ = 8 if w_ == 4096 else 256
+            for planes in (1, 2):
+                xs = [random_words(rng, (r_, w_)) for _ in range(planes)]
+                pen = torch.from_numpy(rng.choice(PENALTIES, (r_, w_))).cuda()
+                got = ops.chain_select(xs, pen)
+                want = ref.chain_select_ref(xs, pen, w_)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, v) for g, v in zip(got, want)):
+                    fail(f"chain-select kernel != plain version at "
+                         f"({r_}, {w_}) with {planes} planes")
+        print("  window sort, ordering unit and chain select == their plain "
+              "versions", flush=True)
 
     ops.reset_launch_counts()
     with Phase("no-NoC (Tab. I)"):
@@ -250,17 +342,8 @@ def main() -> None:
                         lambda _name: layers)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if len(rep.rows) != 36:
-            fail(f"expected 36 rows, got {len(rep.rows)}")
-        if not rep.stats["ejected_equals_injected"]:
-            fail("a lane did not eject every injected flit")
+        check_sweep(rep, "main sweep", 36)
         for r in rep.rows:
-            vals = [r["total_bt"], r["cycles"], r["reduction_pct"],
-                    r["adjusted_reduction_pct"]]
-            if not all(math.isfinite(v) for v in vals) or r["total_bt"] <= 0:
-                fail(f"bad row {r}")
-            if r["transform"] == "O0" and r["reduction_pct"] != 0:
-                fail("O0 row is not its own baseline")
             print(f"  {r['mesh']} {r['precision']:8s} {r['tiebreak']:8s} "
                   f"{r['transform']}: total_bt {r['total_bt']} drain_cycle "
                   f"{r['cycles']} flits {r['flits']} reduction "
@@ -275,15 +358,78 @@ def main() -> None:
                           "packets": npk, "label": int(label[0])}
     main_launches = {k.name: k.launches for k in ops.KERNELS}
 
+    ops.reset_launch_counts()
+    with Phase("O3 path (full-width O0/O3/O3a sweep)"):
+        t0 = time.perf_counter()
+        rep3 = run_sweep(SweepGrid(**AXES_O3, max_packets_per_layer=None),
+                         lambda _name: layers)
+        torch.cuda.synchronize()
+        wall3 = time.perf_counter() - t0
+        check_sweep(rep3, "O3 sweep", 36)
+        o0 = {(r["mesh"], r["precision"], r["tiebreak"]): r["total_bt"]
+              for r in rep.rows if r["transform"] == "O0"}
+        for r in rep3.rows:
+            if (r["transform"] == "O0"
+                    and r["total_bt"] != o0[(r["mesh"], r["precision"],
+                                             r["tiebreak"])]):
+                fail("O0 rows differ between the two full-width sweeps")
+            print(f"  {r['mesh']} {r['precision']:8s} {r['tiebreak']:8s} "
+                  f"{r['transform']:3s}: total_bt {r['total_bt']} "
+                  f"drain_cycle {r['cycles']} reduction "
+                  f"{r['reduction_pct']:.2f}% adjusted "
+                  f"{r['adjusted_reduction_pct']:.2f}%", flush=True)
+        st3 = rep3.stats
+        print(f"  packetize {st3['packetize_s']:.3f} s (by transform "
+              f"{st3['packetize_by_transform']}); simulate "
+              f"{st3['simulate_s']:.3f} s ({st3['stepped_cycles']} "
+              f"lane-cycles); wall {wall3:.3f} s", flush=True)
+        report["o3"] = {"rows": rep3.rows, "stats": st3, "wall_s": wall3}
+    o3_launches = {k.name: k.launches for k in ops.KERNELS}
+
+    ops.reset_launch_counts()
+    with Phase("ordering unit (entry points)"):
+        # The ordering-unit entry points as benchmarks/ordering_throughput.py
+        # drives them (2^18 values in windows of 512), and on the trained
+        # LeNet's conv2 operands (1600 x 150) zero-padded to W = 256.
+        keys = torch.from_numpy(rng.integers(0, 33, (512, 512))
+                                .astype(np.int32)).cuda()
+        pay = random_words(rng, (512, 512)).view(torch.uint32)
+        vals = random_words(rng, (512, 512)).view(torch.uint32)
+        conv2 = [F.pad(t, (0, 256 - t.shape[1]))
+                 for t in (layers[1].inputs, layers[1].weights)]
+        calls = [("sort_windows_desc (512, 512)",
+                  ops.sort_windows_desc(keys, pay),
+                  lambda: ref.sort_windows_ref(keys, words32(pay)))]
+        for name, x in [("order_unit (512, 512) uint32", vals),
+                        ("order_unit conv2 inputs", conv2[0]),
+                        ("order_unit conv2 weights", conv2[1])]:
+            calls.append((name, ops.order_unit(x),
+                          lambda x=x: ref.order_unit_ref(words32(x))))
+        unit_launches = {k.name: k.launches for k in ops.KERNELS}
+        for name, got, plain in calls:
+            want = plain()
+            if not all(torch.equal(words32(g), words32(v))
+                       for g, v in zip(got, want)):
+                fail(f"{name}: kernel != plain version")
+        print(f"  {len(calls)} entry-point calls == their plain versions",
+              flush=True)
+
     with Phase("launches"):
-        launches = {k.name: nonoc_launches[k.name] + main_launches[k.name]
+        paths = {"no_noc": nonoc_launches, "noc": main_launches,
+                 "o3": o3_launches, "ordering_unit": unit_launches}
+        launches = {k.name: sum(p[k.name] for p in paths.values())
                     for k in ops.KERNELS}
-        print(f"  no-NoC path {nonoc_launches} | NoC path {main_launches}",
+        print("  " + " | ".join(f"{n} {p}" for n, p in paths.items()),
               flush=True)
         for name, n in launches.items():
             if n <= 0:
                 fail(f"kernel {name} was not launched on the main path")
-        report["launches"] = {"no_noc": nonoc_launches, "noc": main_launches}
+        if o3_launches["chain_select"] <= 0:
+            fail("the O3 sweep did not go through the chain-select kernel")
+        for name in ("bitonic_sort", "order_unit"):
+            if unit_launches[name] <= 0:
+                fail(f"the ordering-unit entry points did not launch {name}")
+        report["launches"] = paths
 
     with Phase("kernel vs plain path (pinned budget)"):
         t0 = time.perf_counter()
@@ -302,6 +448,23 @@ def main() -> None:
               flush=True)
         report["pinned"] = {"rows": kern.rows, "cuda": kern.stats,
                             "plain": plain.stats}
+        # O3/O3a: every kernel on the card against every plain version on
+        # the CPU (the chain select, the popcount and the router step).
+        t0 = time.perf_counter()
+        kern3 = run_sweep(SweepGrid(**AXES_O3, **PINNED, backend="cuda"),
+                          lambda _name: layers)
+        t1 = time.perf_counter()
+        plain3 = run_sweep(SweepGrid(**AXES_O3, **PINNED, device="cpu"),
+                           lambda _name: layers)
+        t2 = time.perf_counter()
+        check_sweep(kern3, "pinned O3 sweep", 36)
+        if kern3.rows != plain3.rows:
+            fail("pinned O0/O3/O3a rows differ between the kernels on the "
+                 "card and the plain versions on the CPU")
+        print(f"  36 O0/O3/O3a rows identical; card sweep {t1 - t0:.3f} s, "
+              f"CPU plain sweep {t2 - t1:.3f} s", flush=True)
+        report["pinned_o3"] = {"rows": kern3.rows, "cuda": kern3.stats,
+                               "plain_cpu": plain3.stats}
 
     kernels = []
     with Phase("timing"):
@@ -395,12 +558,93 @@ def main() -> None:
             plain_ms=pms, bound_ms=max(tb_, to_) * 1e3,
             bound_by="bytes" if tb_ >= to_ else "operations",
             library_ms=None, shape=[b, nr, m, int(wr.wire.shape[2]), cyc]))
+        def bound_of(nbytes, ops_n):
+            tb_, to_ = nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S
+            return (max(tb_, to_) * 1e3,
+                    "bytes" if tb_ >= to_ else "operations")
+
+        def network_ces(r, w):
+            """Compare-exchanges of the bitonic network over r rows of w."""
+            s = w.bit_length() - 1
+            return r * (w // 2) * s * (s + 1) // 2
+
+        # K4 at the entry point's shape: (512, 512) tie-heavy keys, one
+        # payload. Per compare-exchange: one compare and two selects per
+        # array; bytes: keys and payload read once and written once.
+        r_, w_ = 512, 512
+        keys = torch.from_numpy(rng.integers(0, 33, (r_, w_))
+                                .astype(np.int32)).cuda()
+        pay = random_words(rng, (r_, w_))
+        got = bitonic_sort.sort_windows(keys, pay)
+        want = ref.sort_windows_ref(keys, pay)
+        err = max_err(zip(got, want))
+        ms = cuda_ms(lambda: bitonic_sort.sort_windows(keys, pay), 50)
+        pms = cuda_ms(lambda: ref.sort_windows_ref(keys, pay), 5)
+
+        def library_sort():
+            sk, si = torch.sort(keys, dim=1, descending=True)
+            return sk, torch.gather(pay, 1, si)
+
+        lms = cuda_ms(library_sort, 50)
+        bound, by = bound_of(16 * r_ * w_, network_ces(r_, w_) * 5)
+        kernels.append(dict(
+            name="bitonic_sort", route="cuda",
+            source="src/repro_torch/kernels/csrc/bitonic_sort.cu",
+            replaces="src/repro/kernels/bitonic_sort.py:80",
+            launches=launches["bitonic_sort"], max_abs_err=err, ms=ms,
+            plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=lms,
+            library="torch.sort(descending=True) + one gather",
+            shape=[r_, w_, 1]))
+        # K5 at the entry point's shape: (512, 512) words; per
+        # compare-exchange one compare and two selects per array (key,
+        # value, index), plus one popcount a lane; 4 bytes in, 8 out.
+        vals = random_words(rng, (r_, w_))
+        got = order_unit.order_unit_words(vals)
+        want = ref.order_unit_ref(vals)
+        err = max_err(zip(got, want))
+        ms = cuda_ms(lambda: order_unit.order_unit_words(vals), 50)
+        pms = cuda_ms(lambda: ref.order_unit_ref(vals), 5)
+        bound, by = bound_of(12 * r_ * w_,
+                             network_ces(r_, w_) * 7 + r_ * w_)
+        kernels.append(dict(
+            name="order_unit", route="cuda",
+            source="src/repro_torch/kernels/csrc/order_unit.cu",
+            replaces="src/repro/kernels/order_unit.py:51",
+            launches=launches["order_unit"], max_abs_err=err, ms=ms,
+            plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
+            library="none: torch has no popcount op", shape=[r_, w_]))
+        # K6 at the O3 path's largest shape: conv2 under O3a, 1600 windows
+        # x 8 starts of 152 lanes, two planes. Per lane: two popcounts, an
+        # add and the key (3 ops); per compare-exchange on the padded row:
+        # a (key, index) compare (3 ops) and two selects per array; bytes:
+        # two planes and the penalty in, dvec and order out.
+        r_, w_ = 1600 * 8, 152
+        xs = [random_words(rng, (r_, w_)) for _ in range(2)]
+        pen = torch.from_numpy(rng.choice(PENALTIES, (r_, w_))).cuda()
+        got = chain_select.chain_select(xs, pen, w_)
+        want = ref.chain_select_ref(xs, pen, w_)
+        err = max_err(zip(got, want))
+        ms = cuda_ms(lambda: chain_select.chain_select(xs, pen, w_), 50)
+        pms = cuda_ms(lambda: ref.chain_select_ref(xs, pen, w_), 20)
+        wp = 1 << (w_ - 1).bit_length()
+        bound, by = bound_of(20 * r_ * w_,
+                             network_ces(r_, wp) * 7 + 6 * r_ * w_)
+        kernels.append(dict(
+            name="chain_select", route="cuda",
+            source="src/repro_torch/kernels/csrc/chain_select.cu",
+            replaces="src/repro/kernels/min_hamming.py:288",
+            launches=launches["chain_select"], max_abs_err=err, ms=ms,
+            plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
+            library="none: torch has no popcount op", shape=[r_, w_, 2]))
         for kd in kernels:
             if kd["max_abs_err"] != 0:
                 fail(f"kernel {kd['name']} disagrees at the timing shapes")
+            lib = (f"{kd['library_ms']:.4f} ms" if kd["library_ms"]
+                   is not None else "none")
             print(f"  {kd['name']}: {kd['ms']:.4f} ms (plain {kd['plain_ms']:.4f}"
-                  f" ms, bound {kd['bound_ms']:.5f} ms by {kd['bound_by']}) "
-                  f"shape {kd['shape']}", flush=True)
+                  f" ms, bound {kd['bound_ms']:.5f} ms by {kd['bound_by']}, "
+                  f"library {lib}) shape {kd['shape']} launches "
+                  f"{kd['launches']}", flush=True)
         report["kernels"] = kernels
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -20,6 +20,7 @@ __all__ = [
     "unsigned_view",
     "widen_unsigned",
     "words32",
+    "from_words32",
     "srl",
     "popcount",
     "popcount32",
@@ -33,6 +34,7 @@ __all__ = [
 _CARRIER = {
     torch.float32: torch.int32,
     torch.int32: torch.int32,
+    torch.uint32: torch.int32,
     torch.bfloat16: torch.int16,
     torch.float16: torch.int16,
     torch.int16: torch.int16,
@@ -49,7 +51,7 @@ def bit_width(dtype: torch.dtype) -> int:
 def unsigned_view(values: torch.Tensor) -> torch.Tensor:
     """Reinterpret ``values`` as its same-width word carrier (a bitcast).
 
-    float32/int32 -> int32, bf16/fp16/int16 -> int16, int8/uint8 -> uint8.
+    float32/int32/uint32 -> int32, bf16/fp16/int16 -> int16, int8/uint8 -> uint8.
     The float32 ``-0.0`` maps to the carrier of ``0x80000000``.
     """
     if values.dtype not in _CARRIER:
@@ -73,6 +75,14 @@ def words32(values: torch.Tensor) -> torch.Tensor:
     if nbits == 32:
         return u
     return u.to(torch.int32) & ((1 << nbits) - 1)
+
+
+def from_words32(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`words32`: int32-carried words back to ``dtype``
+    (the low ``bit_width(dtype)`` bits of each word)."""
+    carrier = _CARRIER[dtype]
+    u = words if carrier == torch.int32 else words.to(carrier)
+    return u if u.dtype == dtype else u.view(dtype)
 
 
 def srl(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -8,6 +8,12 @@ The port of ``repro.core.ordering`` for O0-O2:
   inputs carried along so (input, weight) pairs stay matched.
 * :func:`separated_order` (O2) - inputs and weights each sorted by their
   own popcount; needs a recovery index (:func:`index_overhead_bits`).
+* :func:`min_hamming_order` / :func:`separated_min_hamming_order` (O3) and
+  :func:`affiliated_min_hamming_order` (O3a) - chain values by greedy
+  multi-start nearest-neighbour Hamming distance with beam lookahead
+  (``repro_torch.kernels.min_hamming``), then deal the chain column-major
+  across the window's flits so chain neighbours share a wire lane on
+  consecutive flits.
 
 Orderings work inside consecutive windows of the stream (``window`` = the
 packet payload); ``window=None`` sorts the whole stream. Every sort is a
@@ -15,9 +21,6 @@ stable ``torch.argsort`` and the keys are the popcounts (through the
 popcount kernel on CUDA). The ``pattern`` tiebreak orders equal counts by
 the bit pattern read as UNSIGNED - the carrier words are widened to int64
 first, or a word with bit 31 set would sort as negative.
-
-The O3/O3a min-Hamming orderings arrive with a later slice (ROADMAP queue
-A, item 10).
 """
 from __future__ import annotations
 
@@ -37,6 +40,12 @@ __all__ = [
     "descending_order",
     "affiliated_order",
     "separated_order",
+    "min_hamming_perm",
+    "min_hamming_order",
+    "affiliated_min_hamming_order",
+    "separated_min_hamming_order",
+    "DEFAULT_BEAM",
+    "DEFAULT_STARTS",
     "inverse_permutation",
     "apply_permutation",
     "index_overhead_bits",
@@ -179,6 +188,127 @@ def separated_order(
     wperm = descending_perm(wflat, window, tiebreak)
     iperm = descending_perm(iflat, window, tiebreak)
     return PairedOrdered(iflat[iperm], wflat[wperm], iperm, wperm)
+
+
+# --- O3: minimum-Hamming-distance chaining --------------------------------
+
+DEFAULT_BEAM = 2
+DEFAULT_STARTS = 8
+
+
+def min_hamming_perm(values: torch.Tensor, window: Optional[int] = None,
+                     beam: int = DEFAULT_BEAM,
+                     starts: int = DEFAULT_STARTS) -> torch.Tensor:
+    """Chain permutation minimizing consecutive Hamming distance per window
+    (the logical chain order, before the flit deal); flat int64 indices
+    into the zero-padded stream."""
+    from ..kernels.min_hamming import min_hamming_chain
+
+    flat = pad_to_window(values, window)
+    nw, w = _windowed(flat.shape[0], window)
+    res = min_hamming_chain(flat.reshape(nw, w), beam=beam, starts=starts)
+    offset = (torch.arange(nw, device=flat.device) * w)[:, None]
+    return (res.perm.to(torch.int64) + offset).reshape(-1)
+
+
+def _deal_chain(perm: torch.Tensor, z: torch.Tensor,
+                lanes: int) -> torch.Tensor:
+    """Deal per-window chain perms (nw, Wp) column-major over the flits.
+
+    Chained (non-zero) value ``i`` goes to flit ``i % F`` lane ``i // F``
+    with ``F = max(ceil(z / lanes), 1)``, so chain neighbours share a lane
+    on consecutive flits and every flit past ``F`` stays all-zero. Padding
+    zeros fill the free slots in ascending order. Wp must be a multiple of
+    ``lanes``.
+    """
+    nw, wp = perm.shape
+    idx = torch.arange(wp, device=perm.device)[None, :]
+    z = z.to(torch.int64)[:, None]
+    fr = torch.clamp(-(-z // lanes), min=1)
+    nzslot = (idx % fr) * lanes + idx // fr
+    chained = idx < z
+    # The reference drops the writes of unchained positions (``mode="drop"``
+    # on an out-of-range slot); here they land in a spare column that is cut.
+    used = torch.zeros((nw, wp + 1), dtype=torch.int8, device=perm.device)
+    used.scatter_(1, torch.where(chained, nzslot, wp), 1)
+    free = torch.argsort(used[:, :wp], dim=1, stable=True)   # unused, ascending
+    slot = torch.where(chained, nzslot,
+                       torch.gather(free, 1, torch.clamp(idx - z, min=0)))
+    return torch.zeros_like(perm).scatter_(1, slot, perm)
+
+
+def _chain_dealt(planes, window: Optional[int], lanes: Optional[int],
+                 beam: int, starts: int):
+    """Window, pad to a ``lanes`` multiple, chain and deal -> (padded
+    planes (nw, Wp) each, flat int64 perm into the padded stream)."""
+    from ..kernels.min_hamming import min_hamming_chain
+
+    if lanes is None:
+        raise ValueError("min-Hamming ordering needs the flit lane count")
+    flats = [pad_to_window(p, window) for p in planes]
+    nw, w = _windowed(flats[0].shape[0], window)
+    wp = -(-w // lanes) * lanes
+    padded = [F.pad(f.reshape(nw, w), (0, wp - w)) for f in flats]
+    res = min_hamming_chain(padded, beam=beam, starts=starts)
+    dealt = _deal_chain(res.perm.to(torch.int64), res.nonzeros, lanes)
+    offset = (torch.arange(nw, device=dealt.device) * wp)[:, None]
+    return padded, (dealt + offset).reshape(-1)
+
+
+def min_hamming_order(
+    values: torch.Tensor,
+    window: Optional[int] = None,
+    lanes: Optional[int] = None,
+    beam: int = DEFAULT_BEAM,
+    starts: int = DEFAULT_STARTS,
+) -> Ordered:
+    """O3 single-stream ordering: chain each window by Hamming distance and
+    deal the chain across the window's flits.
+
+    Each window is zero-padded to a ``lanes`` multiple before chaining, so
+    the result covers ``ceil(w / lanes) * lanes`` slots per window; the
+    perm indexes that flit-padded stream.
+    """
+    (padded,), perm = _chain_dealt([values], window, lanes, beam, starts)
+    return Ordered(padded.reshape(-1)[perm], perm)
+
+
+def affiliated_min_hamming_order(
+    inputs: torch.Tensor,
+    weights: torch.Tensor,
+    window: Optional[int] = None,
+    lanes: Optional[int] = None,
+    beam: int = DEFAULT_BEAM,
+    starts: int = DEFAULT_STARTS,
+) -> PairedOrdered:
+    """O3a: chain (input, weight) pairs by their *combined* Hamming distance
+    (both planes summed - the paired flit's per-lane-pair toggle cost); one
+    permutation moves both streams, so pairing survives. ``lanes`` is the
+    per-half lane count (``flit lanes // 2`` for paired packing)."""
+    if weights.numel() != inputs.numel():
+        raise ValueError(
+            "affiliated ordering needs paired streams of equal length")
+    (ipad, wpad), perm = _chain_dealt([inputs, weights], window, lanes, beam,
+                                      starts)
+    return PairedOrdered(ipad.reshape(-1)[perm], wpad.reshape(-1)[perm],
+                         perm, perm)
+
+
+def separated_min_hamming_order(
+    inputs: torch.Tensor,
+    weights: torch.Tensor,
+    window: Optional[int] = None,
+    lanes: Optional[int] = None,
+    beam: int = DEFAULT_BEAM,
+    starts: int = DEFAULT_STARTS,
+) -> PairedOrdered:
+    """O3: chain inputs and weights independently, each by its own Hamming
+    distance; needs the O2-style recovery index."""
+    oi = min_hamming_order(inputs, window=window, lanes=lanes, beam=beam,
+                           starts=starts)
+    ow = min_hamming_order(weights, window=window, lanes=lanes, beam=beam,
+                           starts=starts)
+    return PairedOrdered(oi.values, ow.values, oi.perm, ow.perm)
 
 
 def index_overhead_bits(window: int) -> int:

@@ -1,15 +1,18 @@
-"""WireTransform: the composable link-payload transform API (O0/O1/O2).
+"""WireTransform: the composable link-payload transform API.
 
-The port of ``repro.core.wire`` for the paper's three configurations:
+The port of ``repro.core.wire`` for the paper's three configurations and
+the min-Hamming chains:
 
     O0 (baseline)   -> IdentityTransform
     O1 (affiliated) -> AffiliatedTransform   (keyed on the weight stream)
     O2 (separated)  -> SeparatedTransform
+    O3              -> MinHammingTransform   (each stream chained alone)
+    O3a             -> MinHammingAffiliatedTransform (pairs chained together)
 
 plus the single-stream ``desc`` transform. Each reports the recovery
-overhead a receiver needs, so benchmarks charge it honestly. The
-min-Hamming transforms (O3/O3a), flit protection and MSR compression
-arrive with later slices (ROADMAP queue A, items 10, 11, 13).
+overhead a receiver needs, so benchmarks charge it honestly. Flit
+protection and MSR compression arrive with later slices (ROADMAP queue A,
+items 11 and 13).
 
 ``order_packets`` is the row-batched form the packetizer uses: row ``i`` of
 its result is ``order(inputs[i], weights[i])``, i.e. each packet is its own
@@ -33,6 +36,8 @@ __all__ = [
     "DescendingTransform",
     "AffiliatedTransform",
     "SeparatedTransform",
+    "MinHammingTransform",
+    "MinHammingAffiliatedTransform",
     "TRANSFORMS",
     "by_name",
     "measure",
@@ -73,7 +78,9 @@ class WireTransform:
 
     def order_packets(self, inputs: torch.Tensor, weights: torch.Tensor,
                       lanes: int):
-        """Row-batched :meth:`order` over (n, k) packets -> (n, k') each."""
+        """Row-batched :meth:`order` over (n, k) packets -> (n, k') each
+        (``k'`` is ``k`` padded to the window, and for O3/O3a each window
+        further padded to a multiple of ``lanes // 2``)."""
         if not self.reorders:
             return inputs, weights
         n, k = inputs.shape
@@ -84,7 +91,7 @@ class WireTransform:
             weights = F.pad(weights, (0, kp - k))
         inner = dataclasses.replace(self, window=w)
         oi, ow = inner.order(inputs.reshape(-1), weights.reshape(-1), lanes)
-        return oi.reshape(n, kp), ow.reshape(n, kp)
+        return oi.reshape(n, -1), ow.reshape(n, -1)
 
 
 class IdentityTransform(WireTransform):
@@ -159,21 +166,66 @@ class SeparatedTransform(WireTransform):
                                          tiebreak=self.tiebreak).values
 
 
+@dataclasses.dataclass(frozen=True)
+class MinHammingTransform(WireTransform):
+    """O3: chain each stream by consecutive Hamming distance (separated).
+
+    Popcount sorting (O1/O2) is a proxy for the wire objective; O3
+    minimizes consecutive-flit Hamming distance directly and deals each
+    chain column-major, so chain neighbours occupy one lane on consecutive
+    flits. Streams are chained independently, so re-pairing needs an
+    O2-style index - and so does a single stream's order recovery.
+    """
+
+    name: str = "O3"
+    beam: int = ordering.DEFAULT_BEAM
+    starts: int = ordering.DEFAULT_STARTS
+    reorders = True
+
+    def overhead_bits_per_value(self, window: int, paired: bool = True) -> int:
+        return ordering.index_overhead_bits(window)
+
+    def order(self, inputs: torch.Tensor, weights: torch.Tensor, lanes: int):
+        po = ordering.separated_min_hamming_order(
+            inputs, weights, window=self.window, lanes=lanes // 2,
+            beam=self.beam, starts=self.starts)
+        return po.inputs, po.weights
+
+    def order_single(self, values: torch.Tensor, lanes: int) -> torch.Tensor:
+        return ordering.min_hamming_order(
+            values, window=self.window, lanes=lanes,
+            beam=self.beam, starts=self.starts).values
+
+
+@dataclasses.dataclass(frozen=True)
+class MinHammingAffiliatedTransform(MinHammingTransform):
+    """O3a: one min-Hamming chain over the *combined* pair distance; one
+    shared permutation keeps pairs matched - zero recovery cost on the
+    request phase, like O1."""
+
+    name: str = "O3a"
+
+    def overhead_bits_per_value(self, window: int, paired: bool = True) -> int:
+        return 0 if paired else ordering.index_overhead_bits(window)
+
+    def order(self, inputs: torch.Tensor, weights: torch.Tensor, lanes: int):
+        po = ordering.affiliated_min_hamming_order(
+            inputs, weights, window=self.window, lanes=lanes // 2,
+            beam=self.beam, starts=self.starts)
+        return po.inputs, po.weights
+
+
 TRANSFORMS = {
     "O0": IdentityTransform,
     "O1": AffiliatedTransform,
     "O2": SeparatedTransform,
+    "O3": MinHammingTransform,
+    "O3a": MinHammingAffiliatedTransform,
     "desc": DescendingTransform,
 }
 
-_LATER = {"O3": 10, "O3a": 10}
-
 
 def by_name(name: str, window: Optional[int] = None, **kw) -> WireTransform:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"transform {name!r} arrives with a later slice of the port "
-            f"(ROADMAP queue A, item {_LATER[name]})")
     return TRANSFORMS[name](name=name, window=window, **kw)
 
 

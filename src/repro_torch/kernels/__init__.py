@@ -1,8 +1,10 @@
 """The port's Hopper kernels and their plain PyTorch versions.
 
-Three of the reference's six Pallas kernels are ported: ``router_step``,
-``popcount`` and ``bt_count`` (each a ``csrc/*.cu`` source and a wrapper
-module of the same name). ``ops`` dispatches a CUDA tensor to the kernel
-and a CPU tensor to its plain version in ``ref``; ROADMAP.md queue B lists
-the kernels still to port.
+All six of the reference's Pallas kernels are ported, each a ``csrc/*.cu``
+source and a wrapper module: ``router_step``, ``popcount``, ``bt_count``,
+``bitonic_sort`` (the window sort), ``order_unit`` and ``chain_select``; the
+last three share the bitonic network in ``csrc/bitonic.cuh``. ``ops``
+dispatches a CUDA tensor to the kernel and a CPU tensor to its plain version
+in ``ref``. ``min_hamming`` is the O3 chain, which runs one chain-select
+call per step.
 """

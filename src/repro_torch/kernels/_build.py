@@ -22,7 +22,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
-__all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC", "NVCC_FLAGS"]
+__all__ = ["CudaKernel", "build_all", "check_arg", "check_fits", "BUILD_DIR",
+           "CSRC", "NVCC_FLAGS", "SMEM_BYTES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -32,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+
+# Shared memory one block may use on Hopper (dynamic, after opting in).
+SMEM_BYTES = 232_448
 
 
 def _nvcc() -> str:
@@ -63,7 +67,10 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes()
+        # The shared headers are hashed too: an edited header must not be
+        # served a library built from the old one.
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+        h = hashlib.sha256(self.source.read_bytes() + headers
                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}_{h}.so"
 
@@ -92,6 +99,30 @@ class CudaKernel:
         if err:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
+
+
+def check_arg(kernel: str, name: str, t: torch.Tensor, shape) -> None:
+    """Raise unless ``t`` is a contiguous int32 CUDA tensor of ``shape``
+    (what every kernel of the port takes)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor, got "
+                         f"{t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{kernel}: {name} must be int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def check_fits(kernel: str, w: int, arrays: int) -> None:
+    """Raise, naming the width, if one row of ``arrays`` int32 arrays of
+    width ``w`` does not fit a block's shared memory."""
+    if w * 4 * arrays > SMEM_BYTES:
+        raise ValueError(
+            f"{kernel}: a row of width {w} needs {w * 4 * arrays} bytes of "
+            f"shared memory for {arrays} arrays; a block has {SMEM_BYTES}")
 
 
 def stream() -> int:

@@ -1,0 +1,289 @@
+"""Batched minimum-Hamming-distance chaining - the O3 ordering kernel.
+
+The port of ``repro.kernels.min_hamming``. Within each window the chain is
+greedy nearest-neighbour in Hamming space with two refinements:
+
+* **multi-start**: chains start from ``starts`` positions spread evenly
+  over the descending-popcount ranks (every position when a window has at
+  most ``starts`` non-zero values), and the cheapest chain is kept;
+* **beam lookahead**: each step scores the ``beam`` nearest candidates by
+  ``d(cur, c) + min_r d(c, r)`` and breaks ties toward the smaller hop,
+  then the smaller index.
+
+The chain never costs more than the zeros-to-tail identity order, which is
+always a candidate and wins ties, and exact-zero values stay at the window
+tail in their original order.
+
+Layout: the reference's two ``vmap``s (windows, starts) are one explicit
+``(R, S)`` batch, and its ``lax.scan`` is a Python loop of ``w - 1`` steps.
+Each step makes one :func:`repro_torch.kernels.ops.chain_select` call for
+every window and start at once - the Hopper chain-select kernel on CUDA, its
+plain version on the CPU - and takes ``order[..., :beam]`` as the beam and
+``dvec`` as the step's distances. The lookahead, the score and the argmin
+are plain torch, as they are plain jnp in the reference. Every key is int32,
+with the reference's penalties, which bound the window to ``_MAX_WINDOW``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..core.bits import popcount, words32
+from . import ops
+
+__all__ = ["ChainResult", "min_hamming_chain", "min_hamming_chain_reference",
+           "chain_cost", "DEFAULT_BEAM", "DEFAULT_STARTS"]
+
+DEFAULT_BEAM = 2
+DEFAULT_STARTS = 8
+
+# Penalty encoding (int32): a visited candidate loses to any zero-region
+# one, and a zero-region candidate to any live one. Legitimate scores stay
+# below (2*64) * K1 + 64 * K2 + W with K1 = 130*W, K2 = W (~16705*W), so
+# windows up to _MAX_WINDOW values fit under _ZONE.
+_VISITED = 1 << 30
+_ZONE = 1 << 28
+_INF = 1 << 20
+_MAX_WINDOW = 16000
+
+Streams = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+class ChainResult(NamedTuple):
+    perm: torch.Tensor      # (R, W) int32 - chained order, window-local
+    cost: torch.Tensor      # (R,) int32 - sum of consecutive distances
+    nonzeros: torch.Tensor  # (R,) int32 - chained (non-padding) values
+
+
+def _as_planes(streams: Streams) -> torch.Tensor:
+    """One or more (R, W) streams -> (P, R, W) int32 word planes."""
+    if isinstance(streams, torch.Tensor):
+        streams = (streams,)
+    planes = [words32(s) for s in streams]
+    if not planes:
+        raise ValueError("need at least one value stream")
+    if len({tuple(p.shape) for p in planes}) != 1:
+        raise ValueError("all streams must share a (R, W) shape")
+    if planes[0].dim() != 2:
+        raise ValueError(f"streams must be (R, W), got "
+                         f"{tuple(planes[0].shape)}")
+    return torch.stack(planes)
+
+
+def _dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Summed XOR-popcount distance over the leading plane axis (int32)."""
+    d = popcount(a ^ b)
+    return d[0] if d.shape[0] == 1 else d.sum(0, dtype=torch.int32)
+
+
+def _greedy(q: torch.Tensor, z: torch.Tensor, start: torch.Tensor,
+            beam: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy beam-lookahead chains over partitioned (P, R, W) windows from
+    (R, S) start positions -> (orders (R, S, W), costs (R, S)), int32."""
+    p, r, w = q.shape
+    s = start.shape[1]
+    dev = q.device
+    idx = torch.arange(w, dtype=torch.int32, device=dev)
+    zone = torch.where(idx[None, :] >= z[:, None], _ZONE, 0).to(torch.int32)
+    k1, k2 = 130 * w, w
+    start = start.to(torch.int64)
+    # pen = visited + zone penalty per lane; pen >= _ZONE marks the lanes
+    # the lookahead skips (visited or zero-region).
+    visited_pen = torch.full((r, s, 1), _VISITED, dtype=torch.int32,
+                             device=dev)
+    pen = zone[:, None, :].expand(r, s, w).clone()
+    pen.scatter_add_(2, start[..., None], visited_pen)
+    order = torch.zeros((r, s, w), dtype=torch.int32, device=dev)
+    order[..., 0] = start.to(torch.int32)
+    cost = torch.zeros((r, s), dtype=torch.int32, device=dev)
+    q4 = q[:, :, None, :].expand(p, r, s, w)
+    cur = start
+    for i in range(1, w):
+        qcur = torch.gather(q4, 3, cur[None, ..., None].expand(p, r, s, 1))
+        xor = q4 ^ qcur                                           # (P,R,S,W)
+        dvec, sel = ops.chain_select(tuple(xor.reshape(p, r * s, w)),
+                                     pen.reshape(r * s, w), k2=k2)
+        dvec = dvec.view(r, s, w)
+        cand = sel.view(r, s, w)[..., :beam].to(torch.int64)      # (R,S,B)
+        d_b = torch.gather(dvec, 2, cand)
+        qc = torch.gather(q4, 3, cand[None].expand(p, r, s, beam))
+        d2 = _dist(qc[..., None], q[:, :, None, None, :])        # (R,S,B,W)
+        lamask = ((pen >= _ZONE)[:, :, None, :]
+                  | (idx.to(torch.int64) == cand[..., None]))
+        la = torch.where(lamask, _INF, d2).amin(dim=3)
+        la = torch.where(la >= _INF, 0, la)
+        score = ((d_b + la) * k1 + d_b * k2 + cand.to(torch.int32)
+                 + torch.gather(pen, 2, cand))
+        # Scores are pairwise distinct (they embed the candidate index), so
+        # the argmin has no ties to break; the winner is always an unvisited
+        # lane (one remains at every step), so adding _VISITED marks it.
+        nxt = torch.gather(cand, 2, score.argmin(dim=2, keepdim=True))
+        pen.scatter_add_(2, nxt, visited_pen)
+        cost = cost + torch.gather(dvec, 2, nxt)[..., 0]
+        order[..., i] = nxt[..., 0].to(torch.int32)
+        cur = nxt[..., 0]
+    return order, cost
+
+
+def _chain_windows(u: torch.Tensor, beam: int, starts: int):
+    """Chain every window of a (P, R, W) stack: partition zeros to the
+    tail, run ``starts`` greedy chains, fall back to the partitioned
+    identity when it is no dearer."""
+    p, r, w = u.shape
+    dev = u.device
+    idx = torch.arange(w, dtype=torch.int32, device=dev)
+    pc = popcount(u)
+    pops = pc[0] if p == 1 else pc.sum(0, dtype=torch.int32)     # (R, W)
+    nz = pops > 0
+    z = nz.sum(1, dtype=torch.int32)
+    part = torch.argsort((~nz).to(torch.int8), dim=1, stable=True)
+    q = torch.gather(u, 2, part[None].expand(p, r, w))
+    cid = (_dist(q[..., :-1], q[..., 1:]).sum(1, dtype=torch.int32)
+           if w > 1 else torch.zeros((r,), dtype=torch.int32, device=dev))
+
+    # Start positions: descending-popcount ranks 0, z/S, 2z/S, ... - all of
+    # 0..z-1 when z <= starts (the exhaustive small-window regime).
+    dperm = torch.argsort(-torch.gather(pops, 1, part), dim=1, stable=True)
+    ranks = (torch.arange(starts, dtype=torch.int64, device=dev)[None, :]
+             * z[:, None].to(torch.int64)) // starts
+    start_pos = torch.gather(dperm, 1, ranks)                    # (R, S)
+
+    orders, costs = _greedy(q, z, start_pos, beam)
+    # First minimum over the starts, written out: (cost, start) is unique.
+    sbest = (costs.to(torch.int64) * starts
+             + torch.arange(starts, device=dev)).argmin(dim=1, keepdim=True)
+    best = torch.gather(costs, 1, sbest)[:, 0]
+    use_greedy = best < cid
+    chain = torch.where(use_greedy[:, None],
+                        torch.gather(orders, 1, sbest[..., None].expand(
+                            r, 1, w))[:, 0], idx[None, :])
+    cost = torch.minimum(best, cid)
+    perm = torch.gather(part, 1, chain.to(torch.int64)).to(torch.int32)
+    return perm, cost, z
+
+
+def min_hamming_chain(streams: Streams, *, beam: int = DEFAULT_BEAM,
+                      starts: int = DEFAULT_STARTS) -> ChainResult:
+    """Chain each window (row) of one or more (R, W) value streams.
+
+    streams: a single (R, W) tensor, or a sequence of them sharing a shape
+        (the affiliated variant chains (input, weight) pairs on the summed
+        distance of both planes). Any dtype with a bit-pattern view.
+    beam: lookahead beam width (>= 1); ``min(beam, W)`` is used.
+    starts: number of greedy start positions (>= 1).
+
+    Returns window-local permutations: ``values[r, perm[r]]`` is the chained
+    sequence, padding zeros at the tail, cost never above the zeros-to-tail
+    identity order.
+    """
+    u = _as_planes(streams)
+    r, w = u.shape[1:]
+    if beam < 1:
+        raise ValueError(f"beam must be >= 1, got {beam}")
+    if starts < 1:
+        raise ValueError(f"starts must be >= 1, got {starts}")
+    if w > _MAX_WINDOW:
+        raise ValueError(
+            f"window {w} exceeds the int32 score encoding bound "
+            f"({_MAX_WINDOW}); chain smaller windows")
+    if w == 0 or r == 0:
+        zeros = torch.zeros((r,), dtype=torch.int32, device=u.device)
+        return ChainResult(torch.zeros((r, w), dtype=torch.int32,
+                                       device=u.device), zeros, zeros.clone())
+    perm, cost, z = _chain_windows(u, min(beam, w), starts)
+    return ChainResult(perm, cost, z)
+
+
+def chain_cost(streams: Streams, perm: torch.Tensor) -> torch.Tensor:
+    """Sum of consecutive summed-plane Hamming distances of each window of
+    ``streams`` reordered by ``perm`` - the objective O3 minimizes."""
+    u = _as_planes(streams)
+    p = u.shape[0]
+    seq = torch.gather(u, 2, perm.to(torch.int64)[None].expand(p, *perm.shape))
+    if seq.shape[-1] < 2:
+        return torch.zeros((seq.shape[1],), dtype=torch.int32,
+                           device=u.device)
+    return _dist(seq[..., :-1], seq[..., 1:]).sum(1, dtype=torch.int32)
+
+
+def _np_words(a) -> np.ndarray:
+    """numpy or torch values -> uint32 bit patterns (zero-extended)."""
+    if isinstance(a, torch.Tensor):
+        return words32(a.cpu()).numpy().view(np.uint32)
+    a = np.asarray(a)
+    return a.view(f"u{a.dtype.itemsize}").astype(np.uint32)
+
+
+def min_hamming_chain_reference(streams, *, beam: int = DEFAULT_BEAM,
+                                starts: int = DEFAULT_STARTS):
+    """Per-window numpy mirror of :func:`min_hamming_chain`, in python
+    loops (the reference's oracle, kept as the port's own copy) -> numpy
+    ``(perm, cost, nonzeros)``."""
+    if isinstance(streams, (torch.Tensor, np.ndarray)):
+        streams = (streams,)
+    planes = [_np_words(s) for s in streams]
+    r, w = planes[0].shape
+    beam_w = min(max(beam, 1), max(w, 1))
+
+    def popc(x):
+        return bin(int(x)).count("1")
+
+    def dist(i, j, q):
+        return sum(popc(int(p[i]) ^ int(p[j])) for p in q)
+
+    perms = np.zeros((r, w), np.int32)
+    costs = np.zeros((r,), np.int32)
+    zs = np.zeros((r,), np.int32)
+    if w == 0:
+        return perms, costs, zs
+    for row in range(r):
+        q0 = [p[row] for p in planes]
+        pops = [sum(popc(int(p[i])) for p in q0) for i in range(w)]
+        nzidx = [i for i in range(w) if pops[i] > 0]
+        zidx = [i for i in range(w) if pops[i] == 0]
+        part = nzidx + zidx
+        q = [p[part] for p in q0]
+        z = len(nzidx)
+        cid = sum(dist(i, i + 1, q) for i in range(w - 1))
+
+        dperm = sorted(range(w), key=lambda i: (-sum(
+            popc(int(p[i])) for p in q), i))
+        start_pos = [dperm[(s * z) // starts] for s in range(starts)]
+
+        best_cost, best_order = None, None
+        for start in start_pos:
+            visited = [False] * w
+            visited[start] = True
+            order = [start]
+            cur, cost = start, 0
+            for _ in range(w - 1):
+                def selkey(j):
+                    d = dist(cur, j, q)
+                    pen = (_VISITED if visited[j] else 0) + \
+                        (_ZONE if j >= z else 0)
+                    return d * w + j + pen
+                cands = sorted(range(w), key=selkey)[:beam_w]
+
+                def score(c):
+                    d = dist(cur, c, q)
+                    rest = [j for j in range(w)
+                            if not visited[j] and j < z and j != c]
+                    la = min((dist(c, j, q) for j in rest), default=0)
+                    pen = (_VISITED if visited[c] else 0) + \
+                        (_ZONE if c >= z else 0)
+                    return (d + la) * (130 * w) + d * w + c + pen
+                nxt = min(cands, key=score)
+                visited[nxt] = True
+                order.append(nxt)
+                cost += dist(cur, nxt, q)
+                cur = nxt
+            if best_cost is None or cost < best_cost:
+                best_cost, best_order = cost, order
+        if best_cost is None or not (best_cost < cid):
+            best_cost, best_order = cid, list(range(w))
+        perms[row] = np.asarray(part, np.int32)[best_order]
+        costs[row] = best_cost
+        zs[row] = z
+    return perms, costs, zs

@@ -6,16 +6,22 @@ fallback from a failed build or launch to the plain version.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..core.bits import words32
-from . import bt_count, popcount as _popcount, ref, router_step as _router
+from ..core.bits import bit_width, from_words32, unsigned_view, words32
+from . import (bitonic_sort as _bitonic, bt_count, chain_select as _select,
+               order_unit as _order_unit, popcount as _popcount, ref,
+               router_step as _router)
 from ._build import build_all as _build_all
 
-__all__ = ["popcount", "bt_boundaries", "router_step", "KERNELS",
-           "reset_launch_counts", "build_all"]
+__all__ = ["popcount", "bt_boundaries", "router_step", "sort_windows_desc",
+           "order_unit", "chain_select", "KERNELS", "reset_launch_counts",
+           "build_all"]
 
-KERNELS = (_router.KERNEL, _popcount.KERNEL, bt_count.KERNEL)
+KERNELS = (_router.KERNEL, _popcount.KERNEL, bt_count.KERNEL,
+           _bitonic.KERNEL, _order_unit.KERNEL, _select.KERNEL)
 
 
 def reset_launch_counts() -> None:
@@ -53,3 +59,69 @@ def router_step(state, wire, mc_nodes, cycles: int, mesh_key,
                                    count_headers)
     return _router.router_step(state, wire, mc_nodes, cycles, mesh_key,
                                count_headers)
+
+
+def _check_window(w: int) -> None:
+    if w & (w - 1) or w < 128:
+        raise ValueError(f"window must be a power of two >= 128, got {w}")
+
+
+def sort_windows_desc(keys: torch.Tensor, *payloads: torch.Tensor):
+    """Descending key sort within each row of (R, W) tensors by the bitonic
+    network, W a power of two >= 128; payloads (any dtype with a bit
+    pattern view, 0-2 of them) ride the swaps and come back in their own
+    dtype. Keys are taken as int32; returns ``(keys, *payloads)``."""
+    if keys.dim() != 2:
+        raise ValueError(f"keys must be (R, W), got {tuple(keys.shape)}")
+    _check_window(keys.shape[1])
+    for p in payloads:
+        if p.shape != keys.shape:
+            raise ValueError("payload shape must match keys")
+    k32 = keys.to(torch.int32).contiguous()
+    carried = [words32(p).contiguous() for p in payloads]
+    if keys.device.type != "cuda":
+        outs = ref.sort_windows_ref(k32, *carried)
+    else:
+        outs = _bitonic.sort_windows(k32, *carried)
+    return (outs[0], *(from_words32(o, p.dtype)
+                       for o, p in zip(outs[1:], payloads)))
+
+
+def order_unit(values: torch.Tensor):
+    """The fused ordering unit: (R, W) 32-bit values, W a power of two >=
+    128 -> (values ordered by popcount descending within each row, the
+    window-local permutation int32)."""
+    if values.dim() != 2:
+        raise ValueError(f"values must be (R, W), got {tuple(values.shape)}")
+    if bit_width(values.dtype) != 32:
+        raise TypeError(
+            f"order_unit takes 32-bit values, got {values.dtype}; the "
+            "reference returns (R, W, 4) for narrower dtypes (ROADMAP C8), "
+            "so the port refuses them")
+    _check_window(values.shape[1])
+    words = unsigned_view(values).contiguous()
+    if values.device.type != "cuda":
+        out, perm = ref.order_unit_ref(words)
+    else:
+        out, perm = _order_unit.order_unit_words(words)
+    return out.view(values.dtype), perm
+
+
+def chain_select(xors, penalty: torch.Tensor, k2: Optional[int] = None):
+    """Distance + select body of one O3 chain step: 1-2 (R, W) XOR planes
+    (a tensor or a sequence) and an (R, W) int32 penalty -> ``(dvec,
+    order)``, the summed popcount distance per lane and the lanes sorted
+    ascending by ``dvec * k2 + idx + penalty`` (``k2`` defaults to W)."""
+    planes = (xors,) if isinstance(xors, torch.Tensor) else tuple(xors)
+    planes = tuple(words32(p).contiguous() for p in planes)
+    if not planes or len({tuple(p.shape) for p in planes}) != 1 \
+            or planes[0].dim() != 2:
+        raise ValueError("xor planes must share a (R, W) shape")
+    if tuple(penalty.shape) != tuple(planes[0].shape):
+        raise ValueError(f"penalty must be {tuple(planes[0].shape)}, got "
+                         f"{tuple(penalty.shape)}")
+    k2 = planes[0].shape[1] if k2 is None else int(k2)
+    pen = penalty.to(torch.int32).contiguous()
+    if pen.device.type != "cuda":
+        return ref.chain_select_ref(planes, pen, k2)
+    return _select.chain_select(planes, pen, k2)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import I32, P, CudaKernel, stream
+from ._build import I32, P, CudaKernel, check_arg, stream
 
 __all__ = ["KERNEL", "router_step"]
 
@@ -32,19 +32,6 @@ KERNEL = CudaKernel(
     "router_step", "router_step.cu", "router_step_run",
     [P] * 16 + [I32] * 10 + [P],
     replaces="src/repro/kernels/router_step.py:269 make_router_step")
-
-
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"router_step: {name} must be a CUDA tensor, got "
-                         f"{t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"router_step: {name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"router_step: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"router_step: {name} must be contiguous")
 
 
 def router_step(state, wire, mc_nodes: torch.Tensor, cycles: int, mesh_key,
@@ -70,10 +57,10 @@ def router_step(state, wire, mc_nodes: torch.Tensor, cycles: int, mesh_key,
         "cycle": (b,), "drained_at": (b,),
     }
     for name, leaf in zip(state._fields, state):
-        _check(name, leaf, shapes[name])
-    _check("wire", wire.wire, (b, m, t, lf))
-    _check("length", wire.length, (b, m))
-    _check("mc_nodes", mc_nodes, (b, m))
+        check_arg("router_step", name, leaf, shapes[name])
+    check_arg("router_step", "wire", wire.wire, (b, m, t, lf))
+    check_arg("router_step", "length", wire.length, (b, m))
+    check_arg("router_step", "mc_nodes", mc_nodes, (b, m))
     if b and cycles > 0:
         KERNEL.launch(*(leaf.data_ptr() for leaf in state),
                       wire.wire.data_ptr(), wire.length.data_ptr(),

@@ -7,8 +7,9 @@ ordering/precision/tiebreak variants of one (mesh, model) pair share their
 traffic shapes, so each pair packetizes once (payloads ordered once per
 model) and drains in ONE batched simulation. Rows carry the reference's
 keys and values: raw BT totals, exact drain cycles, the reduction against
-the cell's O0 baseline, and the honest reduction that charges the O2
-recovery index at half a transition per bit.
+the cell's O0 baseline, and the honest reduction that charges the
+recovery index of O2 and O3 at half a transition per bit. The transforms
+axis takes O0, O1, O2, O3 and O3a.
 
 Placement, affinity, compression and result-phase axes arrive with later
 slices (ROADMAP queue A, items 9 and 11); until then every row reads
@@ -108,7 +109,8 @@ def recovery_overhead_bits(layers: Sequence[LayerTraffic],
                            transform: WireTransform,
                            max_packets_per_layer: Optional[int] = None) -> int:
     """Total recovery-index bits a transform must transmit for ``layers``
-    (O2: one minimal-width in-packet index per pair; O0/O1: zero)."""
+    (O2/O3: one minimal-width in-packet index per pair; O0/O1/O3a on the
+    paired request phase: zero)."""
     total = 0
     for layer in layers:
         n, k = int(layer.inputs.shape[0]), int(layer.inputs.shape[1])
@@ -126,7 +128,10 @@ def cached_ordered_payloads(cache: Dict[tuple, list], model: str,
                             timings: Optional[Dict[str, float]] = None,
                             device: DeviceLike = None) -> list:
     """Ordered payloads for ``variants``, cached per (model, lanes,
-    transform, precision); returns the per-layer (B, n, F, L) stacks."""
+    transform, precision); returns the per-layer (B, n, F, L) stacks.
+    ``timings`` (transform name -> seconds, accumulated in place) charges
+    each cache miss to its transform, the device synchronised at the end."""
+    dev = resolve_device(device)
     stacks = []
     for (tr, q), (prec, _, _) in zip(variants, axes):
         key = (model, lanes, tr, prec)
@@ -134,8 +139,10 @@ def cached_ordered_payloads(cache: Dict[tuple, list], model: str,
             t0 = time.perf_counter()
             cache[key] = ordered_payloads(
                 layers, lanes, [(tr, q)],
-                max_packets_per_layer=max_packets_per_layer, device=device)
+                max_packets_per_layer=max_packets_per_layer, device=dev)
             if timings is not None:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
                 timings[tr.name] = (timings.get(tr.name, 0.0)
                                     + time.perf_counter() - t0)
         stacks.append(cache[key])
@@ -225,7 +232,8 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                 traffic = build_traffic_streamed_multi(
                     layers, [cfg], variants,
                     chunk_packets=grid.stream_chunk_packets,
-                    num_streams=mc_pad, shapes=shapes, device=dev)[0]
+                    num_streams=mc_pad, shapes=shapes, device=dev,
+                    timings=pack_by_tr)[0]
             else:
                 traffic = assemble_traffic(payload_cache[pkey], cfg,
                                            num_streams=mc_pad,

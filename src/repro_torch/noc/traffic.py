@@ -18,7 +18,8 @@ arrive with later slices (ROADMAP queue A, items 9 and 11).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -197,13 +198,16 @@ def ordered_payloads_streamed(
     chunk_packets: int = 4096,
     max_packets_per_layer: Optional[int] = None,
     device: DeviceLike = None,
+    timings: Optional[Dict[str, float]] = None,
 ) -> Iterator[Tuple[int, int, torch.Tensor]]:
     """Generator form of :func:`ordered_payloads` with a bounded working
     set: yields ``(layer_index, start_packet, words (B, c, F, L))``.
 
     Quantizers see the whole layer first (a fixed-point scale must not
     depend on the chunking); the transform is per-packet, so the chunks
-    concatenate to the one-shot result exactly.
+    concatenate to the one-shot result exactly. ``timings`` (transform
+    name -> seconds, accumulated in place) charges each variant's ordering
+    of each chunk to its transform, the device synchronised at the end.
     """
     if not variants:
         raise ValueError("need at least one (transform, quantizer) variant")
@@ -219,10 +223,17 @@ def ordered_payloads_streamed(
                for _, q in variants]
         for start in range(0, n, chunk_packets):
             c = min(chunk_packets, n - start)
-            per_variant = [
-                _payload_words(qi[start:start + c], qw[start:start + c], tr,
-                               None, lanes)
-                for (tr, _), (qi, qw) in zip(variants, ops)]
+            per_variant = []
+            for (tr, _), (qi, qw) in zip(variants, ops):
+                t0 = time.perf_counter()
+                per_variant.append(_payload_words(
+                    qi[start:start + c], qw[start:start + c], tr, None,
+                    lanes))
+                if timings is not None:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    timings[tr.name] = (timings.get(tr.name, 0.0)
+                                        + time.perf_counter() - t0)
             shapes = {tuple(w.shape) for w in per_variant}
             if len(shapes) != 1:
                 raise ValueError(
@@ -435,9 +446,11 @@ def build_traffic_streamed_multi(
     max_packets_per_layer: Optional[int] = None,
     shapes: Optional[Sequence[Tuple[int, int]]] = None,
     device: DeviceLike = None,
+    timings: Optional[Dict[str, float]] = None,
 ) -> List[Traffic]:
     """Streamed packetization for several configs of one lane width at once:
-    each chunk is ordered once and scattered into every config's streams."""
+    each chunk is ordered once and scattered into every config's streams
+    (``timings``: see :func:`ordered_payloads_streamed`)."""
     if not cfgs:
         raise ValueError("need at least one config")
     if len({c.lanes for c in cfgs}) != 1:
@@ -452,7 +465,8 @@ def build_traffic_streamed_multi(
             for cfg in cfgs]
     for li, start, words in ordered_payloads_streamed(
             layers, cfgs[0].lanes, variants, chunk_packets=chunk_packets,
-            max_packets_per_layer=max_packets_per_layer, device=dev):
+            max_packets_per_layer=max_packets_per_layer, device=dev,
+            timings=timings):
         for asm in asms:
             asm.add_chunk(li, start, words)
     return [asm.finish() for asm in asms]

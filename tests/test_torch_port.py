@@ -3,8 +3,8 @@
 * ``import repro_torch`` (every module) leaves ``jax`` and ``repro`` out of
   ``sys.modules``, and no port source names them in an import;
 * an entry point given no device raises on a machine without CUDA;
-* on a CUDA machine, each Hopper kernel equals its plain PyTorch version
-  exactly (marked ``cuda``; run them on the card with
+* on a CUDA machine, each of the six Hopper kernels equals its plain
+  PyTorch version exactly (marked ``cuda``; run them on the card with
   ``python -m pytest -q -m cuda tests/test_torch_port.py``).
 """
 import os
@@ -76,6 +76,24 @@ def test_entry_points_without_device_raise_on_cpu_machine():
             call()
 
 
+def test_kernel_wrappers_refuse_cpu_tensors_and_oversized_rows():
+    """A wrapper launches its kernel or raises: CPU tensors go to the plain
+    versions through ``ops``, never to a kernel, and a row too wide for a
+    block's shared memory is refused naming its width."""
+    from repro_torch.kernels import _build, bitonic_sort, chain_select
+    from repro_torch.kernels import order_unit
+    x = torch.zeros((2, 128), dtype=torch.int32)
+    calls = [lambda: bitonic_sort.sort_windows(x, x),
+             lambda: order_unit.order_unit_words(x),
+             lambda: chain_select.chain_select([x], x, 128)]
+    for call in calls:
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            call()
+    _build.check_fits("chain_select", 16384, 2)
+    with pytest.raises(ValueError, match="width 32768"):
+        _build.check_fits("chain_select", 32768, 2)
+
+
 # --------------------------------------------------------------------------
 # On the card: each kernel against its plain version, exact equality.
 
@@ -144,6 +162,64 @@ def test_router_kernel_equals_plain_step(mesh, headers):
             if name == "fifo":
                 x, y = x[:, :nr], y[:, :nr]     # phantom row may differ
             assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@cuda
+@pytest.mark.parametrize("r,w,npay", [(1, 128, 0), (37, 128, 2), (16, 256, 1),
+                                      (512, 512, 1), (3, 4096, 2),
+                                      (2, 16384, 2)])
+def test_bitonic_sort_kernel_equals_plain(r, w, npay):
+    """Tie-heavy keys (popcounts in [0, 33)): the network's exact output,
+    payloads included, not just a sorted multiset."""
+    from repro_torch.kernels import bitonic_sort as k, ref
+    rng = np.random.default_rng(r * w + npay)
+    keys = torch.from_numpy(rng.integers(0, 33, (r, w)).astype(np.int32))
+    pays = [torch.from_numpy(rng.integers(0, 2**32, (r, w), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+            for _ in range(npay)]
+    got = k.sort_windows(keys.cuda(), *(p.cuda() for p in pays))
+    torch.cuda.synchronize()
+    want = ref.sort_windows_ref(keys, *pays)
+    assert len(got) == len(want) == 1 + npay
+    for g, v in zip(got, want):
+        assert torch.equal(g.cpu(), v)
+
+
+@pytest.mark.cuda
+@cuda
+@pytest.mark.parametrize("r,w", [(1, 128), (9, 256), (512, 512), (4, 8192)])
+def test_order_unit_kernel_equals_plain(r, w):
+    from repro_torch.kernels import order_unit as k, ref
+    rng = np.random.default_rng(r + w)
+    words = torch.from_numpy(rng.integers(0, 2**32, (r, w), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    out, perm = k.order_unit_words(words.cuda())
+    torch.cuda.synchronize()
+    want_out, want_perm = ref.order_unit_ref(words)
+    assert torch.equal(out.cpu(), want_out)
+    assert torch.equal(perm.cpu(), want_perm)
+
+
+@pytest.mark.cuda
+@cuda
+@pytest.mark.parametrize("r,w,planes", [(1, 1, 1), (3, 17, 1), (5, 130, 2),
+                                        (64, 152, 2), (2, 400, 1),
+                                        (1, 4096, 2), (1, 16000, 1)])
+def test_chain_select_kernel_equals_plain(r, w, planes):
+    from repro_torch.kernels import chain_select as k, ref
+    rng = np.random.default_rng(r * 7 + w + planes)
+    xors = [torch.from_numpy(rng.integers(0, 2**32, (r, w), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+            for _ in range(planes)]
+    pen = torch.from_numpy(rng.choice(
+        np.array([0, 1 << 28, 1 << 30, (1 << 30) + (1 << 28)], np.int32),
+        (r, w)).astype(np.int32))
+    dvec, order = k.chain_select([x.cuda() for x in xors], pen.cuda(), w)
+    torch.cuda.synchronize()
+    want_d, want_o = ref.chain_select_ref(xors, pen, w)
+    assert torch.equal(dvec.cpu(), want_d)
+    assert torch.equal(order.cpu(), want_o)
 
 
 def _synthetic_traffic(cfg, batch, packets, seed):

@@ -6,8 +6,8 @@ Drives the port's paths on the card and holds every Hopper kernel of
 those paths against its plain PyTorch version:
 
  1. device   - needs CUDA; prints the card's name and power limit;
- 2. build    - builds the six kernels (router step, popcount, BT counter,
-               window sort, ordering unit, chain select) from
+ 2. build    - builds the seven kernels (router step, popcount, BT counter,
+               window sort, ordering unit, chain select, chain) from
                ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
                nvcc per source, all started together;
  3. kernels  - each kernel == its plain version, exactly: popcount on 2^20
@@ -17,7 +17,8 @@ those paths against its plain PyTorch version:
                excluded), the window sort on tie-heavy keys at (512, 512)
                and (37, 128) with float32 payload bits, the ordering unit at
                (512, 512), the chain select on 1-2 planes at W = 28, 152,
-               400 and 4096;
+               400 and 4096, the whole chain on 1-2 planes at W = 4, 31,
+               152, 400, 4096 and 16,000;
  4. no-NoC   - the paper's Tab. I path: the trained LeNet's weight stream
                under O0 and O1 (stable, pattern), float32 and fixed8, BT
                measured through the BT-counter kernel;
@@ -25,20 +26,27 @@ those paths against its plain PyTorch version:
                full width (every packet of the inference, streamed) over
                4x4_mc2, 8x8_mc4, 8x8_mc8 x float32/fixed8 x stable/pattern x
                O0/O1/O2, drained through the router kernel;
- 6. O3       - the same full-width sweep with O0/O3/O3a: every chain step
-               through the chain-select kernel;
- 7. ordering unit - the ``sort_windows_desc`` and ``order_unit`` entry
-               points at (512, 512) and on LeNet conv2's operands, each
-               result == the plain version's;
- 8. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-7, read after);
- 9. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+ 6. O3       - the same full-width sweep with O0/O3/O3a: each chain call
+               exactly one launch of the chain kernel, none of the
+               chain-select kernel;
+ 7. idle     - the device's idle share over the O3 packetize of one mesh
+               (8x8_mc4), from one torch.profiler window;
+ 8. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+               and on LeNet conv2's operands, and ``chain_select`` at
+               (12,800, 152) on two planes, each result == the plain
+               version's;
+ 9. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6 and 8, read
+               after);
+10. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
                the plain versions on the CPU: equal rows;
-10. timing   - each kernel at its path's shapes beside its plain version,
+11. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
-               call computing the same function.
+               call computing the same function: device time per launch
+               over a run of launches between one event pair, and beside it
+               the mean of single launches each in its own event pair.
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
@@ -102,22 +110,79 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, setup=None) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA events,
-    after one warm-up); ``setup`` runs before each, outside the timing."""
+def _events():
     import torch
-    if setup:
-        setup()
-    fn()
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def cuda_ms(fn, reps: int, make=None) -> float:
+    """Device milliseconds per call of ``fn`` over one run of ``reps``
+    calls between a single pair of CUDA events, after one warm-up call.
+    ``make`` gives each call its own arguments, all made before the run
+    (for a kernel that updates its input in place)."""
+    import torch
+    args = [make() if make else () for _ in range(reps + 1)]
+    fn(*args.pop())
+    torch.cuda.synchronize()
+    a, b = _events()
+    a.record()
+    for x in args:
+        fn(*x)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_spans(prof):
+    """Sorted (start, end) microseconds of the device activity that a
+    torch.profiler window recorded."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def busy_us(spans) -> float:
+    """Length of the union of sorted (start, end) spans."""
+    total, end = 0.0, -math.inf
+    for a, b in spans:
+        total += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return total
+
+
+def device_ms(fn, reps: int, make=None):
+    """Device busy milliseconds per call of ``fn`` (the union of the device
+    activity spans over ``reps`` calls in one torch.profiler window, after
+    one warm-up call): the kernel's own time, without the host's launch
+    path. None if the profiler recorded no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    args = [make() if make else () for _ in range(reps + 1)]
+    fn(*args.pop())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in args:
+            fn(*x)
+        torch.cuda.synchronize()
+    spans = device_spans(prof)
+    return busy_us(spans) / 1e3 / reps if spans else None
+
+
+def launch_ms(fn, reps: int, make=None) -> float:
+    """Mean of ``reps`` single calls of ``fn``, each between its own pair of
+    CUDA events: for a kernel of a few microseconds, mostly the host's
+    launch path."""
+    import torch
+    fn(*(make() if make else ()))
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
-        if setup:
-            setup()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-            enable_timing=True)
+        x = make() if make else ()
+        a, b = _events()
         a.record()
-        fn()
+        fn(*x)
         b.record()
         b.synchronize()
         total += a.elapsed_time(b)
@@ -191,9 +256,9 @@ def main() -> None:
     from repro_torch.core import flits, wire
     from repro_torch.core.bits import words32
     from repro_torch.data import glyph_batch
-    from repro_torch.kernels import (bitonic_sort, bt_count, chain_select,
-                                     ops, order_unit, popcount, ref,
-                                     router_step)
+    from repro_torch.kernels import (bitonic_sort, bt_count, chain_greedy,
+                                     chain_select, min_hamming, ops,
+                                     order_unit, popcount, ref, router_step)
     from repro_torch.models import LeNet, load_checkpoint
     from repro_torch.noc import SweepGrid, run_sweep, sim
     from repro_torch.noc.topology import mesh_by_name
@@ -283,8 +348,28 @@ def main() -> None:
                 if not all(torch.equal(g, v) for g, v in zip(got, want)):
                     fail(f"chain-select kernel != plain version at "
                          f"({r_}, {w_}) with {planes} planes")
-        print("  window sort, ordering unit and chain select == their plain "
-              "versions", flush=True)
+        # The whole chain: partitioned planes (zeros at each window's
+        # tail), live counts and start positions, at widths up to the
+        # score encoding's bound; every width on one or two planes.
+        for w_, planes, beam in ((4, 1, 2), (31, 2, 1), (152, 1, 2),
+                                 (152, 2, 2), (400, 2, 2), (4096, 1, 2),
+                                 (16000, 2, 2)):
+            r_ = 2 if w_ >= 4096 else 64
+            live = rng.integers(0, w_ + 1, r_)
+            u = random_words(rng, (planes, r_, w_))
+            u[:, torch.arange(w_, device="cuda")[None, :]
+              >= torch.from_numpy(live).cuda()[:, None]] = 0
+            z = torch.from_numpy(live.astype(np.int32)).cuda()
+            st = torch.from_numpy(rng.integers(0, w_, (r_, 8))
+                                  .astype(np.int32)).cuda()
+            got = chain_greedy.chain_greedy(u, z, st, beam)
+            want = ref.chain_greedy_ref(u, z, st, beam)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, v) for g, v in zip(got, want)):
+                fail(f"chain kernel != plain version at ({r_}, 8, {w_}) "
+                     f"with {planes} planes, beam {beam}")
+        print("  window sort, ordering unit, chain select and chain == "
+              "their plain versions", flush=True)
 
     ops.reset_launch_counts()
     with Phase("no-NoC (Tab. I)"):
@@ -358,13 +443,26 @@ def main() -> None:
                           "packets": npk, "label": int(label[0])}
     main_launches = {k.name: k.launches for k in ops.KERNELS}
 
+    # Count the chain calls of the O3 sweep, and keep the largest one's
+    # stack (by P * R * W^2, the chain's work) for the timing phase.
+    chain_calls = []
+    chain_windows = min_hamming._chain_windows
+
+    def counted_chain_windows(u, beam, starts):
+        chain_calls.append((u, beam, starts))
+        return chain_windows(u, beam, starts)
+
     ops.reset_launch_counts()
     with Phase("O3 path (full-width O0/O3/O3a sweep)"):
-        t0 = time.perf_counter()
-        rep3 = run_sweep(SweepGrid(**AXES_O3, max_packets_per_layer=None),
-                         lambda _name: layers)
-        torch.cuda.synchronize()
-        wall3 = time.perf_counter() - t0
+        min_hamming._chain_windows = counted_chain_windows
+        try:
+            t0 = time.perf_counter()
+            rep3 = run_sweep(SweepGrid(**AXES_O3, max_packets_per_layer=None),
+                             lambda _name: layers)
+            torch.cuda.synchronize()
+            wall3 = time.perf_counter() - t0
+        finally:
+            min_hamming._chain_windows = chain_windows
         check_sweep(rep3, "O3 sweep", 36)
         o0 = {(r["mesh"], r["precision"], r["tiebreak"]): r["total_bt"]
               for r in rep.rows if r["transform"] == "O0"}
@@ -383,11 +481,69 @@ def main() -> None:
               f"{st3['packetize_by_transform']}); simulate "
               f"{st3['simulate_s']:.3f} s ({st3['stepped_cycles']} "
               f"lane-cycles); wall {wall3:.3f} s", flush=True)
-        report["o3"] = {"rows": rep3.rows, "stats": st3, "wall_s": wall3}
+        report["o3"] = {"rows": rep3.rows, "stats": st3, "wall_s": wall3,
+                        "chain_calls": len(chain_calls)}
     o3_launches = {k.name: k.launches for k in ops.KERNELS}
+    print(f"  {len(chain_calls)} chain calls; chain kernel launches "
+          f"{o3_launches['chain_greedy']}, chain-select launches "
+          f"{o3_launches['chain_select']}", flush=True)
+    big_chain = max(chain_calls, key=lambda c: c[0].shape[0] * c[0].shape[1]
+                    * c[0].shape[2] ** 2)
+    del chain_calls
+
+    with Phase("device idle share (O3 packetize, 8x8_mc4)"):
+        # One mesh's O3 packetize as run_sweep runs it (its flit shapes come
+        # from the probe, which run_sweep makes once for all meshes), in one
+        # profiler window: the busy share is the union of the device's
+        # activity spans over the window's host time.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.noc.sweep import _QUANTIZERS
+        from repro_torch.noc.traffic import (build_traffic_streamed,
+                                             payload_shapes)
+        cfg = mesh_by_name("8x8_mc4")
+        variants3 = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
+                     for prec in AXES_O3["precisions"]
+                     for tb in AXES_O3["tiebreaks"]
+                     for tr in AXES_O3["transforms"]]
+        shapes = payload_shapes(layers, cfg.lanes, variants3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            build_traffic_streamed(layers, cfg, variants3, num_streams=8,
+                                   shapes=shapes)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        spans = device_spans(prof)
+        busy = busy_us(spans) / 1e3
+        idle = {"window_ms": window_ms, "device_spans": len(spans),
+                "busy_ms": busy,
+                "idle_share": (1 - busy / window_ms) if spans else None,
+                "packetize_s_unprofiled": next(
+                    c["packetize_s"] for c in st3["shape_classes"]
+                    if c["mesh"] == "8x8_mc4")}
+        if spans:
+            by_kernel = sorted(
+                ((e.self_device_time_total / 1e3, e.key, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA), reverse=True)[:8]
+            idle["top_device_ms"] = by_kernel
+            print(f"  device idle share {idle['idle_share']:.4f} (busy "
+                  f"{idle['busy_ms']:.3f} ms of a {window_ms:.3f} ms window, "
+                  f"{len(spans)} device spans; the same packetize "
+                  f"unprofiled in the sweep: "
+                  f"{idle['packetize_s_unprofiled']} s)", flush=True)
+            for ms_, name, n in by_kernel:
+                print(f"    {ms_:.3f} ms  {n} x {name[:90]}", flush=True)
+        else:
+            print("  device idle share: not measured (the profiler recorded "
+                  f"no device activity in a {window_ms:.3f} ms window)",
+                  flush=True)
+        report["idle"] = idle
 
     ops.reset_launch_counts()
-    with Phase("ordering unit (entry points)"):
+    with Phase("entry points (ordering unit, chain select)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
         # drives them (2^18 values in windows of 512), and on the trained
         # LeNet's conv2 operands (1600 x 150) zero-padded to W = 256.
@@ -405,6 +561,13 @@ def main() -> None:
                         ("order_unit conv2 weights", conv2[1])]:
             calls.append((name, ops.order_unit(x),
                           lambda x=x: ref.order_unit_ref(words32(x))))
+        # One chain step's distance + select at conv2-under-O3a's shape:
+        # 1600 windows x 8 starts of 152 lanes, two planes.
+        xs6 = [random_words(rng, (12800, 152)) for _ in range(2)]
+        pen6 = torch.from_numpy(rng.choice(PENALTIES, (12800, 152))).cuda()
+        calls.append(("chain_select (12800, 152) two planes",
+                      ops.chain_select(xs6, pen6),
+                      lambda: ref.chain_select_ref(xs6, pen6, 152)))
         unit_launches = {k.name: k.launches for k in ops.KERNELS}
         for name, got, plain in calls:
             want = plain()
@@ -424,11 +587,15 @@ def main() -> None:
         for name, n in launches.items():
             if n <= 0:
                 fail(f"kernel {name} was not launched on the main path")
-        if o3_launches["chain_select"] <= 0:
-            fail("the O3 sweep did not go through the chain-select kernel")
-        for name in ("bitonic_sort", "order_unit"):
+        if o3_launches["chain_greedy"] != report["o3"]["chain_calls"]:
+            fail(f"the O3 sweep made {report['o3']['chain_calls']} chain "
+                 f"calls but {o3_launches['chain_greedy']} chain-kernel "
+                 "launches (one a call expected)")
+        if o3_launches["chain_select"] != 0:
+            fail("the O3 sweep launched the one-step chain-select kernel")
+        for name in ("bitonic_sort", "order_unit", "chain_select"):
             if unit_launches[name] <= 0:
-                fail(f"the ordering-unit entry points did not launch {name}")
+                fail(f"the entry points did not launch {name}")
         report["launches"] = paths
 
     with Phase("kernel vs plain path (pinned budget)"):
@@ -449,7 +616,7 @@ def main() -> None:
         report["pinned"] = {"rows": kern.rows, "cuda": kern.stats,
                             "plain": plain.stats}
         # O3/O3a: every kernel on the card against every plain version on
-        # the CPU (the chain select, the popcount and the router step).
+        # the CPU (the chain, the popcount and the router step).
         t0 = time.perf_counter()
         kern3 = run_sweep(SweepGrid(**AXES_O3, **PINNED, backend="cuda"),
                           lambda _name: layers)
@@ -475,6 +642,8 @@ def main() -> None:
         got = popcount.popcount_words(x)
         err = int((got - ref.popcount_ref(x)).abs().max())
         ms = cuda_ms(lambda: popcount.popcount_words(x), 50)
+        kl = launch_ms(lambda: popcount.popcount_words(x), 50)
+        dk = device_ms(lambda: popcount.popcount_words(x), 50)
         pms = cuda_ms(lambda: ref.popcount_ref(x), 50)
         bound = max(8 * n / HBM_BYTES_PER_S, n / ALU_OPS_PER_S) * 1e3
         kernels.append(dict(
@@ -482,6 +651,7 @@ def main() -> None:
             source="src/repro_torch/kernels/csrc/popcount.cu",
             replaces="src/repro/kernels/popcount.py:34",
             launches=launches["popcount"], max_abs_err=err, ms=ms,
+            launch_ms=kl, device_ms=dk,
             plain_ms=pms, bound_ms=bound, bound_by="bytes", library_ms=None,
             shape=list(x.shape)))
         # K3 at the no-NoC shape: the float32 weight stream in 8-lane flits.
@@ -490,6 +660,8 @@ def main() -> None:
         got = bt_count.bt_boundaries(fw)
         err = int((got - ref.bt_boundaries_ref(fw)).abs().max())
         ms = cuda_ms(lambda: bt_count.bt_boundaries(fw), 50)
+        kl = launch_ms(lambda: bt_count.bt_boundaries(fw), 50)
+        dk = device_ms(lambda: bt_count.bt_boundaries(fw), 50)
         pms = cuda_ms(lambda: ref.bt_boundaries_ref(fw), 50)
         nbytes = 4 * f * lanes + 4 * (f - 1)
         ops_n = 3 * (f - 1) * lanes
@@ -499,6 +671,7 @@ def main() -> None:
             source="src/repro_torch/kernels/csrc/bt_count.cu",
             replaces="src/repro/kernels/bt_count.py:36",
             launches=launches["bt_count"], max_abs_err=err, ms=ms,
+            launch_ms=kl, device_ms=dk,
             plain_ms=pms, bound_ms=bound,
             bound_by="bytes" if nbytes / HBM_BYTES_PER_S
             >= ops_n / ALU_OPS_PER_S else "operations",
@@ -508,8 +681,6 @@ def main() -> None:
         # state.
         cfg = mesh_by_name("8x8_mc4")
         key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
-        from repro_torch.noc.traffic import build_traffic_streamed
-        from repro_torch.noc.sweep import _QUANTIZERS
         variants = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
                     for prec in AXES["precisions"]
                     for tb in AXES["tiebreaks"] for tr in AXES["transforms"]]
@@ -521,13 +692,14 @@ def main() -> None:
             (b, m)).copy(), device="cuda")
         cyc = 256
         cold = sim.make_state(cfg, m, batch=b, device="cuda")
-        holder = {}
 
         def fresh():
-            holder["s"] = sim.SimState(*(leaf.clone() for leaf in cold))
+            return (sim.SimState(*(leaf.clone() for leaf in cold)),)
 
-        fresh()
-        kout = router_step.router_step(holder["s"], wr, mc, cyc, key, True)
+        def k1(state):
+            return router_step.router_step(state, wr, mc, cyc, key, True)
+
+        kout = k1(*fresh())
         pout = ref.router_step_ref(cold, wr, mc, cyc, key, True)
         torch.cuda.synchronize()
         err = 0
@@ -535,8 +707,9 @@ def main() -> None:
             if name == "fifo":
                 u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
             err = max(err, int((u.long() - v.long()).abs().max()))
-        ms = cuda_ms(lambda: router_step.router_step(
-            holder["s"], wr, mc, cyc, key, True), 20, setup=fresh)
+        ms = cuda_ms(k1, 20, make=fresh)
+        kl = launch_ms(k1, 20, make=fresh)
+        dk = device_ms(k1, 20, make=fresh)
         pms = cuda_ms(lambda: ref.router_step_ref(cold, wr, mc, cyc, key,
                                                   True), 2)
         nr, p, v, lf = cfg.num_routers, 5, cfg.num_vcs, cfg.lanes + 1
@@ -555,6 +728,7 @@ def main() -> None:
             source="src/repro_torch/kernels/csrc/router_step.cu",
             replaces="src/repro/kernels/router_step.py:269",
             launches=launches["router_step"], max_abs_err=err, ms=ms,
+            launch_ms=kl, device_ms=dk,
             plain_ms=pms, bound_ms=max(tb_, to_) * 1e3,
             bound_by="bytes" if tb_ >= to_ else "operations",
             library_ms=None, shape=[b, nr, m, int(wr.wire.shape[2]), cyc]))
@@ -579,6 +753,8 @@ def main() -> None:
         want = ref.sort_windows_ref(keys, pay)
         err = max_err(zip(got, want))
         ms = cuda_ms(lambda: bitonic_sort.sort_windows(keys, pay), 50)
+        kl = launch_ms(lambda: bitonic_sort.sort_windows(keys, pay), 50)
+        dk = device_ms(lambda: bitonic_sort.sort_windows(keys, pay), 50)
         pms = cuda_ms(lambda: ref.sort_windows_ref(keys, pay), 5)
 
         def library_sort():
@@ -592,6 +768,7 @@ def main() -> None:
             source="src/repro_torch/kernels/csrc/bitonic_sort.cu",
             replaces="src/repro/kernels/bitonic_sort.py:80",
             launches=launches["bitonic_sort"], max_abs_err=err, ms=ms,
+            launch_ms=kl, device_ms=dk,
             plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=lms,
             library="torch.sort(descending=True) + one gather",
             shape=[r_, w_, 1]))
@@ -603,6 +780,8 @@ def main() -> None:
         want = ref.order_unit_ref(vals)
         err = max_err(zip(got, want))
         ms = cuda_ms(lambda: order_unit.order_unit_words(vals), 50)
+        kl = launch_ms(lambda: order_unit.order_unit_words(vals), 50)
+        dk = device_ms(lambda: order_unit.order_unit_words(vals), 50)
         pms = cuda_ms(lambda: ref.order_unit_ref(vals), 5)
         bound, by = bound_of(12 * r_ * w_,
                              network_ces(r_, w_) * 7 + r_ * w_)
@@ -611,10 +790,11 @@ def main() -> None:
             source="src/repro_torch/kernels/csrc/order_unit.cu",
             replaces="src/repro/kernels/order_unit.py:51",
             launches=launches["order_unit"], max_abs_err=err, ms=ms,
+            launch_ms=kl, device_ms=dk,
             plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
             library="none: torch has no popcount op", shape=[r_, w_]))
-        # K6 at the O3 path's largest shape: conv2 under O3a, 1600 windows
-        # x 8 starts of 152 lanes, two planes. Per lane: two popcounts, an
+        # K6 at conv2-under-O3a's step shape (its entry-point phase call):
+        # 1600 windows x 8 starts of 152 lanes, two planes. Per lane: two popcounts, an
         # add and the key (3 ops); per compare-exchange on the padded row:
         # a (key, index) compare (3 ops) and two selects per array; bytes:
         # two planes and the penalty in, dvec and order out.
@@ -625,6 +805,8 @@ def main() -> None:
         want = ref.chain_select_ref(xs, pen, w_)
         err = max_err(zip(got, want))
         ms = cuda_ms(lambda: chain_select.chain_select(xs, pen, w_), 50)
+        kl = launch_ms(lambda: chain_select.chain_select(xs, pen, w_), 50)
+        dk = device_ms(lambda: chain_select.chain_select(xs, pen, w_), 50)
         pms = cuda_ms(lambda: ref.chain_select_ref(xs, pen, w_), 20)
         wp = 1 << (w_ - 1).bit_length()
         bound, by = bound_of(20 * r_ * w_,
@@ -634,15 +816,57 @@ def main() -> None:
             source="src/repro_torch/kernels/csrc/chain_select.cu",
             replaces="src/repro/kernels/min_hamming.py:288",
             launches=launches["chain_select"], max_abs_err=err, ms=ms,
+            launch_ms=kl, device_ms=dk,
             plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
             library="none: torch has no popcount op", shape=[r_, w_, 2]))
+        # The chain kernel on the O3 sweep's largest chain call (by P * R *
+        # W^2: conv2 under O3a, 1600 windows x 8 starts of 152 lanes, two
+        # planes), on that call's own partitioned planes, live counts and
+        # starts. Operations per step and lane: the distance 2P + 3, each
+        # beam pass 2; per beam candidate and live lane, the lookahead
+        # 2P + 3. Bytes: planes, live counts and starts in; orders and
+        # costs out.
+        u, beam, starts = big_chain
+        _, q, z, _, st = min_hamming._chain_inputs(u, starts)
+        q, st = words32(q).contiguous(), st.to(torch.int32).contiguous()
+        got = chain_greedy.chain_greedy(q, z, st, beam)
+        want = ref.chain_greedy_ref(q, z, st, beam)
+        err = max_err(zip(got, want))
+
+        def k7():
+            return chain_greedy.chain_greedy(q, z, st, beam)
+
+        ms = cuda_ms(k7, 20)
+        kl = launch_ms(k7, 20)
+        dk = device_ms(k7, 20)
+        pms = cuda_ms(lambda: ref.chain_greedy_ref(q, z, st, beam), 2)
+        p_, r_, w_ = q.shape
+        s_ = st.shape[1]
+        live = int(z.clamp(max=w_).sum())
+        bound, by = bound_of(
+            4 * (p_ * r_ * w_ + r_ + 2 * r_ * s_ + r_ * s_ * w_),
+            (w_ - 1) * s_ * (r_ * w_ * (2 * p_ + 3 + 2 * beam)
+                             + beam * live * (2 * p_ + 3)))
+        kernels.append(dict(
+            name="chain_greedy", route="cuda",
+            source="src/repro_torch/kernels/csrc/chain_greedy.cu",
+            replaces="src/repro/kernels/min_hamming.py:135",
+            launches=launches["chain_greedy"], max_abs_err=err, ms=ms,
+            launch_ms=kl, device_ms=dk,
+            plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
+            library="none: torch has no popcount op",
+            shape=[p_, r_, s_, w_, beam], live=live))
         for kd in kernels:
             if kd["max_abs_err"] != 0:
                 fail(f"kernel {kd['name']} disagrees at the timing shapes")
             lib = (f"{kd['library_ms']:.4f} ms" if kd["library_ms"]
                    is not None else "none")
-            print(f"  {kd['name']}: {kd['ms']:.4f} ms (plain {kd['plain_ms']:.4f}"
-                  f" ms, bound {kd['bound_ms']:.5f} ms by {kd['bound_by']}, "
+            dev = (f"{kd['device_ms']:.4f} ms" if kd["device_ms"]
+                   is not None else "not measured")
+            print(f"  {kd['name']}: {kd['ms']:.4f} ms a launch in a run "
+                  f"(single launches {kd['launch_ms']:.4f} ms; device busy "
+                  f"{dev} a launch; plain "
+                  f"{kd['plain_ms']:.4f} ms, bound {kd['bound_ms']:.5f} ms by {kd['bound_by']}, "
                   f"library {lib}) shape {kd['shape']} launches "
                   f"{kd['launches']}", flush=True)
         report["kernels"] = kernels

@@ -5,6 +5,8 @@ source and a wrapper module: ``router_step``, ``popcount``, ``bt_count``,
 ``bitonic_sort`` (the window sort), ``order_unit`` and ``chain_select``; the
 last three share the bitonic network in ``csrc/bitonic.cuh``. ``ops``
 dispatches a CUDA tensor to the kernel and a CPU tensor to its plain version
-in ``ref``. ``min_hamming`` is the O3 chain, which runs one chain-select
-call per step.
+in ``ref``. ``min_hamming`` is the O3 chain: each chain call is one launch
+of ``chain_greedy`` (``csrc/chain_greedy.cu``), which runs every step of
+every chain in the kernel; ``chain_select`` is the one-step body that the
+reference's ``chain_select_pallas`` is, kept as an entry point of its own.
 """

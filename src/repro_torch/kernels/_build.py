@@ -116,13 +116,15 @@ def check_arg(kernel: str, name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def check_fits(kernel: str, w: int, arrays: int) -> None:
+def check_fits(kernel: str, w: int, arrays: int, extra: int = 0) -> None:
     """Raise, naming the width, if one row of ``arrays`` int32 arrays of
-    width ``w`` does not fit a block's shared memory."""
-    if w * 4 * arrays > SMEM_BYTES:
+    width ``w`` (plus ``extra`` bytes) does not fit a block's shared
+    memory."""
+    need = w * 4 * arrays + extra
+    if need > SMEM_BYTES:
         raise ValueError(
-            f"{kernel}: a row of width {w} needs {w * 4 * arrays} bytes of "
-            f"shared memory for {arrays} arrays; a block has {SMEM_BYTES}")
+            f"{kernel}: a row of width {w} needs {need} bytes of shared "
+            f"memory for {arrays} arrays; a block has {SMEM_BYTES}")
 
 
 def stream() -> int:

@@ -15,17 +15,17 @@ always a candidate and wins ties, and exact-zero values stay at the window
 tail in their original order.
 
 Layout: the reference's two ``vmap``s (windows, starts) are one explicit
-``(R, S)`` batch, and its ``lax.scan`` is a Python loop of ``w - 1`` steps.
-Each step makes one :func:`repro_torch.kernels.ops.chain_select` call for
-every window and start at once - the Hopper chain-select kernel on CUDA, its
-plain version on the CPU - and takes ``order[..., :beam]`` as the beam and
-``dvec`` as the step's distances. The lookahead, the score and the argmin
-are plain torch, as they are plain jnp in the reference. Every key is int32,
-with the reference's penalties, which bound the window to ``_MAX_WINDOW``.
+``(R, S)`` batch, and its ``lax.scan`` - all ``w - 1`` steps of every chain
+- is one :func:`repro_torch.kernels.ops.chain_greedy` call: one launch of
+the Hopper chain kernel on CUDA, the plain step loop
+(``ref.chain_greedy_ref``) on the CPU. The partition, the identity cost,
+the start ranks and the best-start choice around it are a handful of torch
+calls per chain call. Every key is int32, with the reference's penalties,
+which bound the window to ``_MAX_WINDOW``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple, Union
+from typing import NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
@@ -78,62 +78,13 @@ def _dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d[0] if d.shape[0] == 1 else d.sum(0, dtype=torch.int32)
 
 
-def _greedy(q: torch.Tensor, z: torch.Tensor, start: torch.Tensor,
-            beam: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy beam-lookahead chains over partitioned (P, R, W) windows from
-    (R, S) start positions -> (orders (R, S, W), costs (R, S)), int32."""
-    p, r, w = q.shape
-    s = start.shape[1]
-    dev = q.device
-    idx = torch.arange(w, dtype=torch.int32, device=dev)
-    zone = torch.where(idx[None, :] >= z[:, None], _ZONE, 0).to(torch.int32)
-    k1, k2 = 130 * w, w
-    start = start.to(torch.int64)
-    # pen = visited + zone penalty per lane; pen >= _ZONE marks the lanes
-    # the lookahead skips (visited or zero-region).
-    visited_pen = torch.full((r, s, 1), _VISITED, dtype=torch.int32,
-                             device=dev)
-    pen = zone[:, None, :].expand(r, s, w).clone()
-    pen.scatter_add_(2, start[..., None], visited_pen)
-    order = torch.zeros((r, s, w), dtype=torch.int32, device=dev)
-    order[..., 0] = start.to(torch.int32)
-    cost = torch.zeros((r, s), dtype=torch.int32, device=dev)
-    q4 = q[:, :, None, :].expand(p, r, s, w)
-    cur = start
-    for i in range(1, w):
-        qcur = torch.gather(q4, 3, cur[None, ..., None].expand(p, r, s, 1))
-        xor = q4 ^ qcur                                           # (P,R,S,W)
-        dvec, sel = ops.chain_select(tuple(xor.reshape(p, r * s, w)),
-                                     pen.reshape(r * s, w), k2=k2)
-        dvec = dvec.view(r, s, w)
-        cand = sel.view(r, s, w)[..., :beam].to(torch.int64)      # (R,S,B)
-        d_b = torch.gather(dvec, 2, cand)
-        qc = torch.gather(q4, 3, cand[None].expand(p, r, s, beam))
-        d2 = _dist(qc[..., None], q[:, :, None, None, :])        # (R,S,B,W)
-        lamask = ((pen >= _ZONE)[:, :, None, :]
-                  | (idx.to(torch.int64) == cand[..., None]))
-        la = torch.where(lamask, _INF, d2).amin(dim=3)
-        la = torch.where(la >= _INF, 0, la)
-        score = ((d_b + la) * k1 + d_b * k2 + cand.to(torch.int32)
-                 + torch.gather(pen, 2, cand))
-        # Scores are pairwise distinct (they embed the candidate index), so
-        # the argmin has no ties to break; the winner is always an unvisited
-        # lane (one remains at every step), so adding _VISITED marks it.
-        nxt = torch.gather(cand, 2, score.argmin(dim=2, keepdim=True))
-        pen.scatter_add_(2, nxt, visited_pen)
-        cost = cost + torch.gather(dvec, 2, nxt)[..., 0]
-        order[..., i] = nxt[..., 0].to(torch.int32)
-        cur = nxt[..., 0]
-    return order, cost
-
-
-def _chain_windows(u: torch.Tensor, beam: int, starts: int):
-    """Chain every window of a (P, R, W) stack: partition zeros to the
-    tail, run ``starts`` greedy chains, fall back to the partitioned
-    identity when it is no dearer."""
+def _chain_inputs(u: torch.Tensor, starts: int):
+    """A (P, R, W) stack -> the chain's inputs: the zeros-to-tail partition
+    ``part`` (R, W), the partitioned planes ``q``, the live counts ``z``,
+    the partitioned identity's cost ``cid`` and the (R, S) start
+    positions."""
     p, r, w = u.shape
     dev = u.device
-    idx = torch.arange(w, dtype=torch.int32, device=dev)
     pc = popcount(u)
     pops = pc[0] if p == 1 else pc.sum(0, dtype=torch.int32)     # (R, W)
     nz = pops > 0
@@ -149,8 +100,18 @@ def _chain_windows(u: torch.Tensor, beam: int, starts: int):
     ranks = (torch.arange(starts, dtype=torch.int64, device=dev)[None, :]
              * z[:, None].to(torch.int64)) // starts
     start_pos = torch.gather(dperm, 1, ranks)                    # (R, S)
+    return part, q, z, cid, start_pos
 
-    orders, costs = _greedy(q, z, start_pos, beam)
+
+def _chain_windows(u: torch.Tensor, beam: int, starts: int):
+    """Chain every window of a (P, R, W) stack: partition zeros to the
+    tail, run ``starts`` greedy chains, fall back to the partitioned
+    identity when it is no dearer."""
+    r, w = u.shape[1:]
+    dev = u.device
+    idx = torch.arange(w, dtype=torch.int32, device=dev)
+    part, q, z, cid, start_pos = _chain_inputs(u, starts)
+    orders, costs = ops.chain_greedy(q, z, start_pos, beam)
     # First minimum over the starts, written out: (cost, start) is unique.
     sbest = (costs.to(torch.int64) * starts
              + torch.arange(starts, device=dev)).argmin(dim=1, keepdim=True)

@@ -11,17 +11,18 @@ from typing import Optional
 import torch
 
 from ..core.bits import bit_width, from_words32, unsigned_view, words32
-from . import (bitonic_sort as _bitonic, bt_count, chain_select as _select,
-               order_unit as _order_unit, popcount as _popcount, ref,
-               router_step as _router)
+from . import (bitonic_sort as _bitonic, bt_count, chain_greedy as _greedy,
+               chain_select as _select, order_unit as _order_unit,
+               popcount as _popcount, ref, router_step as _router)
 from ._build import build_all as _build_all
 
 __all__ = ["popcount", "bt_boundaries", "router_step", "sort_windows_desc",
-           "order_unit", "chain_select", "KERNELS", "reset_launch_counts",
-           "build_all"]
+           "order_unit", "chain_select", "chain_greedy", "KERNELS",
+           "reset_launch_counts", "build_all"]
 
 KERNELS = (_router.KERNEL, _popcount.KERNEL, bt_count.KERNEL,
-           _bitonic.KERNEL, _order_unit.KERNEL, _select.KERNEL)
+           _bitonic.KERNEL, _order_unit.KERNEL, _select.KERNEL,
+           _greedy.KERNEL)
 
 
 def reset_launch_counts() -> None:
@@ -125,3 +126,25 @@ def chain_select(xors, penalty: torch.Tensor, k2: Optional[int] = None):
     if pen.device.type != "cuda":
         return ref.chain_select_ref(planes, pen, k2)
     return _select.chain_select(planes, pen, k2)
+
+
+def chain_greedy(q: torch.Tensor, z: torch.Tensor, start: torch.Tensor,
+                 beam: int):
+    """Every step of the greedy beam-lookahead O3 chains of one chain call:
+    partitioned (P, R, W) planes (P = 1 or 2, any 32-bit dtype), (R,) live
+    counts and (R, S) start positions -> ``(orders (R, S, W), costs (R,
+    S))`` int32, ``1 <= beam <= W``."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be (P, R, W), got {tuple(q.shape)}")
+    p, r, w = q.shape
+    if tuple(z.shape) != (r,) or start.dim() != 2 or start.shape[0] != r:
+        raise ValueError(f"z must be ({r},) and start ({r}, S), got "
+                         f"{tuple(z.shape)} and {tuple(start.shape)}")
+    if w and not 1 <= beam <= w:
+        raise ValueError(f"beam must be in [1, {w}], got {beam}")
+    q32 = words32(q).contiguous()
+    z32 = z.to(torch.int32).contiguous()
+    s32 = start.to(torch.int32).contiguous()
+    if q.device.type != "cuda":
+        return ref.chain_greedy_ref(q32, z32, s32, beam)
+    return _greedy.chain_greedy(q32, z32, s32, beam)

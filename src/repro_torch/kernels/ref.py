@@ -11,7 +11,8 @@ import torch
 from ..core.bits import popcount32, words32
 
 __all__ = ["popcount_ref", "bt_boundaries_ref", "router_step_ref",
-           "sort_windows_ref", "order_unit_ref", "chain_select_ref"]
+           "sort_windows_ref", "order_unit_ref", "chain_select_ref",
+           "chain_greedy_ref"]
 
 
 def popcount_ref(values: torch.Tensor) -> torch.Tensor:
@@ -95,3 +96,62 @@ def chain_select_ref(planes, penalty: torch.Tensor, k2: int):
     key = dvec * k2 + idx + penalty.to(torch.int32)
     order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
     return dvec, order
+
+
+def _dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Summed XOR-popcount distance over the leading plane axis (int32)."""
+    d = popcount32(a ^ b)
+    return d[0] if d.shape[0] == 1 else d.sum(0, dtype=torch.int32)
+
+
+def chain_greedy_ref(q: torch.Tensor, z: torch.Tensor, start: torch.Tensor,
+                     beam: int):
+    """Greedy beam-lookahead chains over partitioned (P, R, W) int32 planes
+    with (R,) live counts from (R, S) start positions -> (orders (R, S, W),
+    costs (R, S)) int32: the reference's ``_greedy_from`` scan, vmapped over
+    starts and windows, as one (R, S) batch and a loop of ``w - 1`` steps,
+    each a :func:`chain_select_ref` call."""
+    from .min_hamming import _INF, _VISITED, _ZONE
+    p, r, w = q.shape
+    s = start.shape[1]
+    dev = q.device
+    idx = torch.arange(w, dtype=torch.int32, device=dev)
+    zone = torch.where(idx[None, :] >= z[:, None], _ZONE, 0).to(torch.int32)
+    k1, k2 = 130 * w, w
+    start = start.to(torch.int64)
+    # pen = visited + zone penalty per lane; pen >= _ZONE marks the lanes
+    # the lookahead skips (visited or zero-region).
+    visited_pen = torch.full((r, s, 1), _VISITED, dtype=torch.int32,
+                             device=dev)
+    pen = zone[:, None, :].expand(r, s, w).clone()
+    pen.scatter_add_(2, start[..., None], visited_pen)
+    order = torch.zeros((r, s, w), dtype=torch.int32, device=dev)
+    order[..., 0] = start.to(torch.int32)
+    cost = torch.zeros((r, s), dtype=torch.int32, device=dev)
+    q4 = q[:, :, None, :].expand(p, r, s, w)
+    cur = start
+    for i in range(1, w):
+        qcur = torch.gather(q4, 3, cur[None, ..., None].expand(p, r, s, 1))
+        xor = q4 ^ qcur                                           # (P,R,S,W)
+        dvec, sel = chain_select_ref(tuple(xor.reshape(p, r * s, w)),
+                                     pen.reshape(r * s, w), k2)
+        dvec = dvec.view(r, s, w)
+        cand = sel.view(r, s, w)[..., :beam].to(torch.int64)      # (R,S,B)
+        d_b = torch.gather(dvec, 2, cand)
+        qc = torch.gather(q4, 3, cand[None].expand(p, r, s, beam))
+        d2 = _dist(qc[..., None], q[:, :, None, None, :])        # (R,S,B,W)
+        lamask = ((pen >= _ZONE)[:, :, None, :]
+                  | (idx.to(torch.int64) == cand[..., None]))
+        la = torch.where(lamask, _INF, d2).amin(dim=3)
+        la = torch.where(la >= _INF, 0, la)
+        score = ((d_b + la) * k1 + d_b * k2 + cand.to(torch.int32)
+                 + torch.gather(pen, 2, cand))
+        # Scores are pairwise distinct (they embed the candidate index), so
+        # the argmin has no ties to break; the winner is always an unvisited
+        # lane (one remains at every step), so adding _VISITED marks it.
+        nxt = torch.gather(cand, 2, score.argmin(dim=2, keepdim=True))
+        pen.scatter_add_(2, nxt, visited_pen)
+        cost = cost + torch.gather(dvec, 2, nxt)[..., 0]
+        order[..., i] = nxt[..., 0].to(torch.int32)
+        cur = nxt[..., 0]
+    return order, cost

@@ -12,9 +12,10 @@ those paths against its plain PyTorch version:
                nvcc per source, all started together;
  3. kernels  - each kernel == its plain version, exactly: popcount on 2^20
                words, the BT counter on (4097, 16) words, the router step
-               over 512 cycles of a synthetic 8x8 batch (all 13 state leaves
-               after every 128-cycle chunk; the FIFO's phantom router row
-               excluded), the window sort on tie-heavy keys at (512, 512)
+               over 512 cycles of a synthetic 6-lane batch on 4x4, 8x8 and
+               16x16 meshes, one for each shared-memory layout (all 13 state
+               leaves after every 128-cycle chunk; the FIFO's phantom router
+               row excluded), the window sort on tie-heavy keys at (512, 512)
                and (37, 128) with float32 payload bits, the ordering unit at
                (512, 512), the chain select on 1-2 planes at W = 28, 152,
                400 and 4096, the whole chain on 1-2 planes at W = 4, 31,
@@ -30,7 +31,8 @@ those paths against its plain PyTorch version:
                exactly one launch of the chain kernel, none of the
                chain-select kernel;
  7. idle     - the device's idle share over the O3 packetize of one mesh
-               (8x8_mc4), from one torch.profiler window;
+               (8x8_mc4), and over that mesh's O0/O1/O2 drain, each from
+               one torch.profiler window;
  8. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, and ``chain_select`` at
                (12,800, 152) on two planes, each result == the plain
@@ -46,7 +48,10 @@ those paths against its plain PyTorch version:
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
-               the mean of single launches each in its own event pair.
+               the mean of single launches each in its own event pair;
+               the router step also on a warm state (each paper mesh's
+               full-width batch after 4,096 cycles), in microseconds per
+               simulated cycle.
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
@@ -235,6 +240,14 @@ def check_sweep(rep, label: str, rows: int) -> None:
             fail(f"{label}: O0 row is not its own baseline")
 
 
+def sweep_streams(cfg) -> int:
+    """MC streams of ``cfg``'s drains in the sweep: padded to the most MCs
+    of a paper mesh of the same size (8 for both 8x8 meshes)."""
+    from repro_torch.noc.topology import mesh_by_name
+    return max(mesh_by_name(n).num_mcs for n in MESHES
+               if mesh_by_name(n).num_routers == cfg.num_routers)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(REPO, "build",
@@ -268,7 +281,7 @@ def main() -> None:
         times = ops.build_all()
         for k in ops.KERNELS:
             regs = [ln.strip() for ln in k.build_log.splitlines()
-                    if "registers" in ln or "smem" in ln]
+                    if "registers" in ln or "spill" in ln]
             print(f"  {k.name}: built in {times[k.name]:.1f} s "
                   f"{' | '.join(regs)}", flush=True)
 
@@ -290,27 +303,31 @@ def main() -> None:
         if not torch.equal(bt_count.bt_boundaries(words),
                            ref.bt_boundaries_ref(words)):
             fail("BT-counter kernel != plain BT counter")
-        cfg = mesh_by_name("8x8_mc4")
-        key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
-        t = synthetic_traffic(cfg, batch=6, packets=400, seed=1)
-        wr = sim.fuse_traffic(t)
-        mc = torch.as_tensor(np.broadcast_to(
-            np.asarray(cfg.mc_nodes, np.int32), (6, cfg.num_mcs)).copy(),
-            device="cuda")
-        a = sim.make_state(cfg, cfg.num_mcs, batch=6, device="cuda")
-        b = sim.SimState(*(leaf.clone() for leaf in a))
-        for chunk_i in range(4):
-            a = router_step.router_step(a, wr, mc, 128, key, True)
-            b = ref.router_step_ref(b, wr, mc, 128, key, True)
-            torch.cuda.synchronize()
-            for name, u, v in zip(a._fields, a, b):
-                if name == "fifo":
-                    u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
-                if not torch.equal(u, v):
-                    fail(f"router kernel != plain step: leaf {name} after "
-                         f"chunk {chunk_i}")
-        print(f"  router kernel == plain step over 512 cycles, 6 lanes, "
-              f"{int(a.ejected.sum())} flits ejected", flush=True)
+        for mesh in ("4x4_mc2", "8x8_mc4", "16x16_mc16"):
+            cfg = mesh_by_name(mesh)
+            key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
+            t = synthetic_traffic(cfg, batch=6, packets=400, seed=1)
+            wr = sim.fuse_traffic(t)
+            mc = torch.as_tensor(np.broadcast_to(
+                np.asarray(cfg.mc_nodes, np.int32), (6, cfg.num_mcs)).copy(),
+                device="cuda")
+            a = sim.make_state(cfg, cfg.num_mcs, batch=6, device="cuda")
+            b = sim.SimState(*(leaf.clone() for leaf in a))
+            for chunk_i in range(4):
+                a = router_step.router_step(a, wr, mc, 128, key, True)
+                b = ref.router_step_ref(b, wr, mc, 128, key, True)
+                torch.cuda.synchronize()
+                for name, u, v in zip(a._fields, a, b):
+                    if name == "fifo":
+                        u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
+                    if not torch.equal(u, v):
+                        fail(f"router kernel != plain step on {mesh}: leaf "
+                             f"{name} after chunk {chunk_i}")
+            lay = router_step.smem_layout(key, cfg.num_mcs)
+            print(f"  router kernel == plain step on {mesh} over 512 cycles, "
+                  f"6 lanes, {int(a.ejected.sum())} flits ejected (shared "
+                  f"memory: {', '.join(lay.in_shared) or 'routing state'}; "
+                  f"{lay.bytes} bytes, {lay.threads} threads)", flush=True)
         # Window sort: tie-heavy keys (popcounts in [0, 33), as
         # benchmarks/ordering_throughput.py makes them); the (37, 128) case
         # carries a float32 payload whose words have bit 31 set.
@@ -542,6 +559,53 @@ def main() -> None:
                   flush=True)
         report["idle"] = idle
 
+    with Phase("device idle share (O0/O1/O2 drain, 8x8_mc4)"):
+        # The mesh's drain as run_sweep runs it: its full-width 12-variant
+        # O0/O1/O2 traffic (MC streams padded to the 8x8 group's 8), chunks
+        # of 2,048 cycles, in one profiler window.
+        cfg = mesh_by_name("8x8_mc4")
+        variants = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
+                    for prec in AXES["precisions"]
+                    for tb in AXES["tiebreaks"] for tr in AXES["transforms"]]
+        m_pad = sweep_streams(cfg)
+        t = build_traffic_streamed(layers, cfg, variants, num_streams=m_pad)
+        mc_rows = np.broadcast_to(np.asarray(
+            tuple(cfg.mc_nodes) + (0,) * (m_pad - cfg.num_mcs), np.int32),
+            (len(variants), m_pad))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = sim.simulate_batch(cfg, t, mc_nodes=mc_rows, chunk=2048)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        if not all(r.ejected == r.injected for r in res):
+            fail("the profiled 8x8_mc4 drain left flits in the network")
+        spans = device_spans(prof)
+        busy = busy_us(spans) / 1e3
+        k1_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and "router_cycles" in e.key) / 1e3
+        drain = {"window_ms": window_ms, "device_spans": len(spans),
+                 "busy_ms": busy, "router_kernel_ms": k1_ms,
+                 "idle_share": (1 - busy / window_ms) if spans else None,
+                 "drain_cycles": max(r.drain_cycle for r in res),
+                 "simulate_s_unprofiled": next(
+                     c["simulate_s"] for c in rep.stats["shape_classes"]
+                     if c["mesh"] == "8x8_mc4")}
+        if spans:
+            print(f"  device idle share {drain['idle_share']:.4f} (busy "
+                  f"{busy:.3f} ms of a {window_ms:.3f} ms window, "
+                  f"{k1_ms:.3f} ms of it in the router kernel, "
+                  f"{len(spans)} device spans; the same drain unprofiled in "
+                  f"the sweep: {drain['simulate_s_unprofiled']} s)",
+                  flush=True)
+        else:
+            print("  device idle share: not measured (the profiler recorded "
+                  f"no device activity in a {window_ms:.3f} ms window)",
+                  flush=True)
+        report["idle_drain"] = drain
+
     ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
@@ -732,6 +796,50 @@ def main() -> None:
             plain_ms=pms, bound_ms=max(tb_, to_) * 1e3,
             bound_by="bytes" if tb_ >= to_ else "operations",
             library_ms=None, shape=[b, nr, m, int(wr.wire.shape[2]), cyc]))
+        # K1 on a warm state: each paper mesh's full-width 12-lane batch
+        # after 4,096 cycles (FIFOs occupied, every stream injecting), then
+        # 256-cycle chunks from clones of that state: microseconds per
+        # simulated cycle (all lanes step together).
+        warm = {}
+        for mesh in MESHES:
+            cfg_w = mesh_by_name(mesh)
+            key_w = (cfg_w.rows, cfg_w.cols, cfg_w.num_vcs, cfg_w.vc_depth,
+                     cfg_w.lanes)
+            m_w = sweep_streams(cfg_w)
+            wr_w = sim.fuse_traffic(build_traffic_streamed(
+                layers, cfg_w, variants, num_streams=m_w))
+            b_w = wr_w.length.shape[0]
+            mc_w = torch.as_tensor(np.broadcast_to(np.asarray(
+                tuple(cfg_w.mc_nodes) + (0,) * (m_w - cfg_w.num_mcs),
+                np.int32), (b_w, m_w)).copy(), device="cuda")
+            st_w = sim.make_state(cfg_w, m_w, batch=b_w, device="cuda")
+            router_step.router_step(st_w, wr_w, mc_w, 4096, key_w, True)
+            torch.cuda.synchronize()
+
+            def k1w(state, wr_w=wr_w, mc_w=mc_w, key_w=key_w):
+                return router_step.router_step(state, wr_w, mc_w, cyc, key_w,
+                                               True)
+
+            def fresh_w(st_w=st_w):
+                return (sim.SimState(*(leaf.clone() for leaf in st_w)),)
+
+            ms_w = cuda_ms(k1w, 20, make=fresh_w)
+            dev_w = device_ms(k1w, 20, make=fresh_w)
+            lay = router_step.smem_layout(key_w, m_w)
+            warm[mesh] = dict(
+                us_per_cycle=ms_w * 1e3 / cyc,
+                device_us_per_cycle=(dev_w * 1e3 / cyc
+                                     if dev_w is not None else None),
+                lanes=b_w, streams=m_w,
+                flits_in_network=int(st_w.count[:, :cfg_w.num_routers].sum()),
+                ejected=int(st_w.ejected.sum()),
+                shared=list(lay.in_shared), smem_bytes=lay.bytes,
+                threads=lay.threads)
+            print(f"  router_step warm on {mesh}: {warm[mesh]['us_per_cycle']:.4f}"
+                  f" us a cycle (device {warm[mesh]['device_us_per_cycle']}"
+                  f" us), {b_w} lanes, {warm[mesh]['flits_in_network']} flits"
+                  f" in the network after 4,096 cycles", flush=True)
+        kernels[-1]["warm"] = warm
         def bound_of(nbytes, ops_n):
             tb_, to_ = nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S
             return (max(tb_, to_) * 1e3,

@@ -7,6 +7,7 @@
   PyTorch version exactly (marked ``cuda``; run them on the card with
   ``python -m pytest -q -m cuda tests/test_torch_port.py``).
 """
+import dataclasses
 import os
 import pkgutil
 import re
@@ -134,34 +135,81 @@ def test_bt_count_kernel_equals_plain(f, lanes):
     assert torch.equal(got.cpu(), ref.bt_boundaries_ref(x.cpu()))
 
 
+@pytest.fixture
+def card():
+    """Skip unless a CUDA card is present (decided when the test runs)."""
+    if torch.cuda.device_count() < 1:
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# (mesh, count_headers, packets, flits a packet, (VCs, depth, lanes) or
+# None for the paper's 4, 4, 16): one mesh for each shared-memory layout the
+# wrapper chooses (2x2 and 4x4: the whole FIFO; 8x8: all but the payload;
+# 16x16: the sideband but not link_last), a congested 8x8 whose FIFOs fill
+# so that credits refuse pushes, and two other router geometries, which run
+# the kernel's general instantiation (8 VCs: 40 slots a router, more than
+# one request word).
+ROUTER_CASES = [
+    ("2x2_mc1", True, 40, 5, None), ("4x4_mc2", True, 40, 5, None),
+    ("4x4_mc2", False, 40, 5, None), ("8x8_mc4", True, 40, 5, None),
+    ("8x8_mc4", False, 40, 5, None), ("16x16_mc16", True, 60, 5, None),
+    ("16x16_mc16", False, 60, 5, None), ("8x8_mc16", True, 120, 24, None),
+    ("4x4_mc2", True, 40, 5, (2, 3, 8)), ("4x4_mc2", False, 60, 5, (8, 2, 16)),
+]
+ROUTER_LAYOUTS = {
+    "2x2_mc1": ("side", "link_last", "payload"),
+    "4x4_mc2": ("side", "link_last", "payload"),
+    "8x8_mc4": ("side", "link_last"), "8x8_mc16": ("side", "link_last"),
+    "16x16_mc16": ("side",),
+}
+
+
 @pytest.mark.cuda
-@cuda
-@pytest.mark.parametrize("mesh,headers", [("2x2_mc1", True),
-                                          ("4x4_mc2", True),
-                                          ("4x4_mc2", False),
-                                          ("8x8_mc4", True)])
-def test_router_kernel_equals_plain_step(mesh, headers):
+@pytest.mark.parametrize("mesh,headers,packets,flits,geometry", ROUTER_CASES)
+def test_router_kernel_equals_plain_step(card, mesh, headers, packets, flits,
+                                         geometry):
+    """Chunks of 1, 7, 64 and 2,048 cycles with the state carried across
+    launches and a lane compaction (``state.take``) between two of them:
+    every leaf equal to the plain step's, the FIFO on real router rows."""
     from repro_torch.kernels import ref, router_step as k
     from repro_torch.noc import sim
     from repro_torch.noc.topology import mesh_by_name
     cfg = mesh_by_name(mesh)
+    if geometry:
+        v, d, lanes = geometry
+        cfg = dataclasses.replace(cfg, num_vcs=v, vc_depth=d, lanes=lanes)
     key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
-    t = _synthetic_traffic(cfg, batch=3, packets=40, seed=5)
+    t = _synthetic_traffic(cfg, batch=3, packets=packets, seed=5,
+                           flits=flits)
     wire = sim.fuse_traffic(t)
-    mc = torch.as_tensor(np.broadcast_to(np.asarray(cfg.mc_nodes, np.int32),
-                                         (3, cfg.num_mcs)).copy(),
-                         device="cuda")
-    a = sim.make_state(cfg, cfg.num_mcs, batch=3, device="cuda")
+    m = wire.length.shape[1]
+    assert k.smem_layout(key, m).in_shared == ROUTER_LAYOUTS[mesh]
+    mc = torch.as_tensor(np.broadcast_to(
+        np.asarray(tuple(cfg.mc_nodes) + (0,) * (m - cfg.num_mcs), np.int32),
+        (3, m)).copy(), device=card)
+    a = sim.make_state(cfg, m, batch=3, device=card)
     b = sim.SimState(*(leaf.clone() for leaf in a))
     nr = cfg.num_routers
-    for _ in range(4):
-        a = k.router_step(a, wire, mc, 64, key, headers)
-        b = ref.router_step_ref(b, wire, mc, 64, key, headers)
+    peak = 0
+    for i, chunk in enumerate((1, 7, 64, 2048)):
+        if i == 2:      # compaction: lanes 2 and 0, in that order
+            idx = torch.tensor([2, 0], device=card)
+            a, b = a.take(idx), b.take(idx)
+            wire = sim.Wire(wire.wire.index_select(0, idx),
+                            wire.length.index_select(0, idx))
+            mc = mc.index_select(0, idx)
+        a = k.router_step(a, wire, mc, chunk, key, headers)
+        b = ref.router_step_ref(b, wire, mc, chunk, key, headers)
         torch.cuda.synchronize()
         for name, x, y in zip(a._fields, a, b):
             if name == "fifo":
                 x, y = x[:, :nr], y[:, :nr]     # phantom row may differ
-            assert torch.equal(x, y), name
+            assert torch.equal(x, y), (name, chunk)
+        peak = max(peak, int(a.count[:, :nr].max()))
+    assert bool((a.ejected > 0).all())
+    if flits > 5:
+        assert peak == cfg.vc_depth     # congested: some FIFO filled
 
 
 @pytest.mark.cuda
@@ -222,13 +270,13 @@ def test_chain_select_kernel_equals_plain(r, w, planes):
     assert torch.equal(order.cpu(), want_o)
 
 
-def _synthetic_traffic(cfg, batch, packets, seed):
+def _synthetic_traffic(cfg, batch, packets, seed, flits=5):
     """Random payload words on the packetizer's real skeleton."""
     from repro_torch.noc.traffic import TrafficAssembler
     rng = np.random.default_rng(seed)
-    asm = TrafficAssembler([(packets, 5)], cfg, num_variants=batch,
+    asm = TrafficAssembler([(packets, flits)], cfg, num_variants=batch,
                            device="cuda")
-    w = rng.integers(0, 2**32, (batch, packets, 5, cfg.lanes),
+    w = rng.integers(0, 2**32, (batch, packets, flits, cfg.lanes),
                      dtype=np.uint64).astype(np.uint32)
     asm.add_chunk(0, 0, torch.from_numpy(w.view(np.int32)).cuda())
     return asm.finish()

@@ -6,8 +6,10 @@ Drives the port's paths on the card and holds every Hopper kernel of
 those paths against its plain PyTorch version:
 
  1. device   - needs CUDA; prints the card's name and power limit;
- 2. build    - builds the seven kernels (router step, popcount, BT counter,
-               window sort, ordering unit, chain select, chain) from
+ 2. build    - builds the nine kernels (router step, popcount, BT counter,
+               window sort, ordering unit, chain select, chain, and the
+               popcount window order's two entry points, descending_perm
+               and chain_inputs, which share one source) from
                ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
                nvcc per source, all started together;
  3. kernels  - each kernel == its plain version, exactly: popcount on 2^20
@@ -19,7 +21,14 @@ those paths against its plain PyTorch version:
                and (37, 128) with float32 payload bits, the ordering unit at
                (512, 512), the chain select on 1-2 planes at W = 28, 152,
                400 and 4096, the whole chain on 1-2 planes at W = 4, 31,
-               152, 400, 4096 and 16,000;
+               152, 400, 4096 and 16,000; the popcount window order's
+               O1/O2 permutation (through ``ordering.descending_perm``)
+               on tie-heavy float32 words with bit 31 set, int8 / uint8 /
+               bf16 carriers, all-zero windows, zero tails, W = 1 to
+               62,224 (the no-NoC path's whole-stream window, buffers in
+               device scratch) and R = 0, both tiebreaks, and its chain
+               preamble on 1-2 planes at W = 1 to 16,000 with z = 0 and z
+               <= starts rows and a zero-padded tail, and R = 0;
  4. no-NoC   - the paper's Tab. I path: the trained LeNet's weight stream
                under O0 and O1 (stable, pattern), float32 and fixed8, BT
                measured through the BT-counter kernel;
@@ -28,18 +37,21 @@ those paths against its plain PyTorch version:
                4x4_mc2, 8x8_mc4, 8x8_mc8 x float32/fixed8 x stable/pattern x
                O0/O1/O2, drained through the router kernel;
  6. O3       - the same full-width sweep with O0/O3/O3a: each chain call
-               exactly one launch of the chain kernel, none of the
-               chain-select kernel;
+               exactly one launch of the chain kernel and one of the
+               chain-preamble kernel, none of the chain-select kernel;
  7. idle     - the device's idle share over the O3 packetize of one mesh
-               (8x8_mc4), and over that mesh's O0/O1/O2 drain, each from
-               one torch.profiler window;
+               (8x8_mc4), over that mesh's O0/O1/O2 drain and over its
+               O0/O1/O2 packetize, each from one torch.profiler window; no
+               ``aten::argsort`` / ``aten::sort`` in that packetize's
+               window, nor in one chain preamble's;
  8. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, and ``chain_select`` at
                (12,800, 152) on two planes, each result == the plain
                version's;
  9. launches - every kernel launched at least once by the path that runs it
                (counts reset just before each of phases 4-6 and 8, read
-               after);
+               after); each CUDA ``descending_perm`` call of phases 4-5
+               exactly one launch of the window-order kernel;
 10. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
@@ -51,7 +63,9 @@ those paths against its plain PyTorch version:
                the mean of single launches each in its own event pair;
                the router step also on a warm state (each paper mesh's
                full-width batch after 4,096 cycles), in microseconds per
-               simulated cycle.
+               simulated cycle; the window order at conv2's (1600, 150)
+               float32 operands (stable and pattern) and the chain
+               preamble at conv2 under O3a (2 x 1,600 x 152).
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
@@ -266,12 +280,13 @@ def main() -> None:
               f"{torch.version.cuda} | {kind}", flush=True)
 
     import torch.nn.functional as F
-    from repro_torch.core import flits, wire
+    from repro_torch.core import flits, ordering, wire
     from repro_torch.core.bits import words32
     from repro_torch.data import glyph_batch
     from repro_torch.kernels import (bitonic_sort, bt_count, chain_greedy,
                                      chain_select, min_hamming, ops,
-                                     order_unit, popcount, ref, router_step)
+                                     order_unit, popcount, popcount_order,
+                                     ref, router_step)
     from repro_torch.models import LeNet, load_checkpoint
     from repro_torch.noc import SweepGrid, run_sweep, sim
     from repro_torch.noc.topology import mesh_by_name
@@ -387,7 +402,84 @@ def main() -> None:
                      f"with {planes} planes, beam {beam}")
         print("  window sort, ordering unit, chain select and chain == "
               "their plain versions", flush=True)
+        # The popcount window order on the trap cases: tie-heavy windows
+        # (a pool of 16 words, six with bit 31 set, one zero; int8 from 9
+        # values), narrow carriers (nbits 8 and 16), all-zero windows, the
+        # zero tail the padding adds, W = 1, the no-NoC whole-stream
+        # window and R = 0; each CUDA permutation == the plain one of the
+        # same values on the CPU.
+        pool = rng.integers(0, 2**32, 16, dtype=np.uint64).astype(np.uint32)
+        pool[:6] |= np.uint32(0x80000000)
+        pool[6] = 0
+        f32 = rng.choice(pool, 62224 * 2 + 77).view(np.float32)
+        i8 = rng.choice(np.array([-128, -64, -1, 0, 1, 3, 7, 15, 127],
+                                 np.int8), 4096 * 25 + 9)
+        bf = rng.choice(pool.astype(np.uint16), 120 * 40 + 3).view(np.int16)
+        perm_cases = [
+            (torch.from_numpy(f32[:1600 * 150].copy()), 150),
+            (torch.from_numpy(f32[:4096 * 25 + 11].copy()), 25),
+            (torch.from_numpy(f32[:400 * 7 + 13].copy()), 400),
+            (torch.from_numpy(f32[:100].copy()), 1),
+            (torch.from_numpy(f32.copy()), 62224),
+            (torch.from_numpy(i8.copy()), 25),
+            (torch.from_numpy(i8[:150 * 30].view(np.uint8).copy()), 84),
+            (torch.from_numpy(bf.copy()).view(torch.bfloat16), 120),
+            (torch.zeros(150 * 10), 150),
+        ]
+        for vals, win in perm_cases:
+            for tb in ("stable", "pattern"):
+                got = ordering.descending_perm(vals.cuda(), win, tb)
+                want = ordering.descending_perm(vals, win, tb)
+                torch.cuda.synchronize()
+                if not torch.equal(got.cpu(), want):
+                    fail(f"window-order kernel != plain permutation: "
+                         f"{vals.dtype} window {win}, {tb}")
+        for shape in ((0, 25), (1, 0)):
+            e = torch.zeros(shape, dtype=torch.int32, device="cuda")
+            if ops.descending_perm_rows(e, "pattern", 32).shape != (0,):
+                fail(f"window-order kernel on a {shape} input")
+        # The chain preamble: windows with every live count (z = 0 and
+        # z <= starts among them), bit-31 words, a position live in one
+        # plane only, conv2's window zero-padded to 152, and R = 0.
+        for planes, r_, w_, pad, st in ((1, 64, 1, 0, 8), (2, 64, 1, 0, 8),
+                                        (1, 512, 32, 0, 8),
+                                        (2, 1600, 152, 2, 8),
+                                        (2, 64, 400, 0, 3),
+                                        (1, 8, 4096, 0, 8),
+                                        (2, 2, 16000, 0, 8),
+                                        (2, 0, 152, 0, 8)):
+            u = random_words(rng, (planes, r_, w_))
+            live = torch.from_numpy(rng.integers(0, w_ + 1, (r_, w_))).cuda()
+            keep = live < torch.from_numpy(rng.integers(0, w_ + 1, r_)
+                                           ).cuda()[:, None]
+            u *= keep.to(torch.int32)
+            if planes == 2:
+                u[1, :, 1::4] = 0
+            if pad:
+                u[:, :, -pad:] = 0
+            got = ops.chain_inputs(u, st)
+            want = ref.chain_inputs_ref(u, st)
+            torch.cuda.synchronize()
+            if not all(g.dtype == v.dtype and torch.equal(g, v)
+                       for g, v in zip(got, want)):
+                fail(f"chain-preamble kernel != plain version at "
+                     f"({planes}, {r_}, {w_}), {st} starts")
+        print(f"  window order == plain on {len(perm_cases)} streams x 2 "
+              "tiebreaks and R = 0; chain preamble == plain on 8 shapes",
+              flush=True)
 
+    # Count the CUDA descending_perm calls of the no-NoC and main paths
+    # (each must be one launch of the window-order kernel).
+    perm_calls = {"no_noc": 0, "noc": 0}
+    descending_perm = ordering.descending_perm
+    path = "no_noc"
+
+    def counted_descending_perm(values, window=None, tiebreak="stable"):
+        if values.is_cuda and values.numel():
+            perm_calls[path] += 1
+        return descending_perm(values, window, tiebreak)
+
+    ordering.descending_perm = counted_descending_perm
     ops.reset_launch_counts()
     with Phase("no-NoC (Tab. I)"):
         ck = load_checkpoint(CKPT, device="cuda")
@@ -428,6 +520,7 @@ def main() -> None:
         report["tab1"] = tab1
     nonoc_launches = {k.name: k.launches for k in ops.KERNELS}
 
+    path = "noc"
     ops.reset_launch_counts()
     with Phase("main path (full-width sweep)"):
         gen = torch.Generator(device="cuda").manual_seed(7)
@@ -459,6 +552,7 @@ def main() -> None:
         report["main"] = {"rows": rep.rows, "stats": st, "wall_s": wall,
                           "packets": npk, "label": int(label[0])}
     main_launches = {k.name: k.launches for k in ops.KERNELS}
+    ordering.descending_perm = descending_perm
 
     # Count the chain calls of the O3 sweep, and keep the largest one's
     # stack (by P * R * W^2, the chain's work) for the timing phase.
@@ -502,7 +596,8 @@ def main() -> None:
                         "chain_calls": len(chain_calls)}
     o3_launches = {k.name: k.launches for k in ops.KERNELS}
     print(f"  {len(chain_calls)} chain calls; chain kernel launches "
-          f"{o3_launches['chain_greedy']}, chain-select launches "
+          f"{o3_launches['chain_greedy']}, chain-preamble launches "
+          f"{o3_launches['chain_inputs']}, chain-select launches "
           f"{o3_launches['chain_select']}", flush=True)
     big_chain = max(chain_calls, key=lambda c: c[0].shape[0] * c[0].shape[1]
                     * c[0].shape[2] ** 2)
@@ -606,6 +701,54 @@ def main() -> None:
                   flush=True)
         report["idle_drain"] = drain
 
+    with Phase("sorts (O0/O1/O2 packetize 8x8_mc4, chain preamble)"):
+        # The mesh's O0/O1/O2 packetize as run_sweep runs it, in one
+        # profiler window: its idle share, and no sort left on the CUDA
+        # path (each O1/O2 order is one window-order launch); then the
+        # largest chain call's preamble, also without a sort.
+        shapes = payload_shapes(layers, cfg.lanes, variants)
+        torch.cuda.synchronize()
+        before = popcount_order.DESCENDING_PERM.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            build_traffic_streamed(layers, cfg, variants, num_streams=m_pad,
+                                   shapes=shapes)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        sorts = {e.key: e.count for e in prof.key_averages()
+                 if e.key in ("aten::argsort", "aten::sort")}
+        if sorts:
+            fail(f"the O0/O1/O2 packetize still sorts on the card: {sorts}")
+        if popcount_order.DESCENDING_PERM.launches == before:
+            fail("the O0/O1/O2 packetize did not launch the window order")
+        spans = device_spans(prof)
+        busy = busy_us(spans) / 1e3
+        pack = {"window_ms": window_ms, "device_spans": len(spans),
+                "busy_ms": busy,
+                "idle_share": (1 - busy / window_ms) if spans else None,
+                "window_order_launches":
+                    popcount_order.DESCENDING_PERM.launches - before,
+                "packetize_s_unprofiled": next(
+                    c["packetize_s"] for c in rep.stats["shape_classes"]
+                    if c["mesh"] == "8x8_mc4")}
+        u, beam, starts = big_chain
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.chain_inputs(u, starts)
+            torch.cuda.synchronize()
+        sorts = {e.key: e.count for e in prof.key_averages()
+                 if e.key in ("aten::argsort", "aten::sort")}
+        if sorts:
+            fail(f"the chain preamble still sorts on the card: {sorts}")
+        print(f"  no sort in the O0/O1/O2 packetize "
+              f"({pack['window_order_launches']} window-order launches) nor "
+              f"in the chain preamble; packetize idle share "
+              f"{pack['idle_share']} (busy "
+              f"{busy:.3f} ms of a {window_ms:.3f} ms window; unprofiled in "
+              f"the sweep: {pack['packetize_s_unprofiled']} s)", flush=True)
+        report["idle_packetize"] = pack
+
     ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
@@ -657,10 +800,24 @@ def main() -> None:
                  "launches (one a call expected)")
         if o3_launches["chain_select"] != 0:
             fail("the O3 sweep launched the one-step chain-select kernel")
+        if o3_launches["chain_inputs"] != report["o3"]["chain_calls"]:
+            fail(f"the O3 sweep made {report['o3']['chain_calls']} chain "
+                 f"calls but {o3_launches['chain_inputs']} chain-preamble "
+                 "launches (one a call expected)")
+        for name, launched in (("no_noc", nonoc_launches),
+                               ("noc", main_launches)):
+            if launched["descending_perm"] != perm_calls[name]:
+                fail(f"the {name} path made {perm_calls[name]} CUDA "
+                     f"descending_perm calls but "
+                     f"{launched['descending_perm']} window-order launches "
+                     "(one a call expected)")
+        print(f"  descending_perm calls {perm_calls}: one window-order "
+              "launch each", flush=True)
         for name in ("bitonic_sort", "order_unit", "chain_select"):
             if unit_launches[name] <= 0:
                 fail(f"the entry points did not launch {name}")
         report["launches"] = paths
+        report["descending_perm_calls"] = perm_calls
 
     with Phase("kernel vs plain path (pinned budget)"):
         t0 = time.perf_counter()
@@ -935,7 +1092,7 @@ def main() -> None:
         # 2P + 3. Bytes: planes, live counts and starts in; orders and
         # costs out.
         u, beam, starts = big_chain
-        _, q, z, _, st = min_hamming._chain_inputs(u, starts)
+        _, q, z, _, st = ops.chain_inputs(u, starts)
         q, st = words32(q).contiguous(), st.to(torch.int32).contiguous()
         got = chain_greedy.chain_greedy(q, z, st, beam)
         want = ref.chain_greedy_ref(q, z, st, beam)
@@ -964,6 +1121,56 @@ def main() -> None:
             plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
             library="none: torch has no popcount op",
             shape=[p_, r_, s_, w_, beam], live=live))
+        # The window order at conv2's (1600, 150) float32 operands, both
+        # tiebreaks (one shared launch counter). Bytes: the words read once,
+        # the int64 permutation written once; operations: ~16 a value and
+        # pass (key, match, rank and offset, counted and placed).
+        xw = words32(layers[1].weights.contiguous()).contiguous()
+        r_, w_ = xw.shape
+        for tb, passes in (("stable", 1), ("pattern", 5)):
+            def kd_(tb=tb):
+                return popcount_order.descending_perm(xw, tb, 32)
+
+            def pd_(tb=tb):
+                return ref.descending_perm_rows_ref(xw, tb, 32)
+
+            err = max_err([(kd_(), pd_())])
+            bound, by = bound_of(12 * r_ * w_, 16 * passes * r_ * w_)
+            kernels.append(dict(
+                name="descending_perm" + ("/pattern" if passes > 1 else ""),
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/popcount_order.cu",
+                replaces="src/repro/kernels/popcount.py:34",
+                launches=launches["descending_perm"], max_abs_err=err,
+                ms=cuda_ms(kd_, 50), launch_ms=launch_ms(kd_, 50),
+                device_ms=device_ms(kd_, 50), plain_ms=cuda_ms(pd_, 50),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library="none: torch has no popcount op",
+                shape=[r_, w_, tb]))
+        # The chain preamble on the largest chain call's stack (conv2 under
+        # O3a: 2 x 1,600 x 152). Bytes: the planes read once; part (int64),
+        # q, z, cid and the int64 starts written once; operations ~(2P + 16)
+        # a value.
+        p_, r_, w_ = u.shape
+
+        def k8():
+            return ops.chain_inputs(u, starts)
+
+        err = max_err(zip(k8(), ref.chain_inputs_ref(u, starts)))
+        bound, by = bound_of(4 * p_ * r_ * w_ + 8 * r_ * w_ + 4 * p_ * r_ * w_
+                             + 8 * r_ + 8 * r_ * starts,
+                             (2 * p_ + 16) * r_ * w_)
+        kernels.append(dict(
+            name="chain_inputs", route="cuda",
+            source="src/repro_torch/kernels/csrc/popcount_order.cu",
+            replaces="src/repro/kernels/popcount.py:34",
+            launches=launches["chain_inputs"], max_abs_err=err,
+            ms=cuda_ms(k8, 50), launch_ms=launch_ms(k8, 50),
+            device_ms=device_ms(k8, 50),
+            plain_ms=cuda_ms(lambda: ref.chain_inputs_ref(u, starts), 50),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            library="none: torch has no popcount op",
+            shape=[p_, r_, w_, starts]))
         for kd in kernels:
             if kd["max_abs_err"] != 0:
                 fail(f"kernel {kd['name']} disagrees at the timing shapes")

@@ -45,7 +45,7 @@ _CARRIER = {
 
 def bit_width(dtype: torch.dtype) -> int:
     """Number of bits in one element of ``dtype``."""
-    return torch.empty((), dtype=dtype).element_size() * 8
+    return dtype.itemsize * 8
 
 
 def unsigned_view(values: torch.Tensor) -> torch.Tensor:

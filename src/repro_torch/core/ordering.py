@@ -16,11 +16,11 @@ The port of ``repro.core.ordering`` for O0-O2:
   consecutive flits.
 
 Orderings work inside consecutive windows of the stream (``window`` = the
-packet payload); ``window=None`` sorts the whole stream. Every sort is a
-stable ``torch.argsort`` and the keys are the popcounts (through the
-popcount kernel on CUDA). The ``pattern`` tiebreak orders equal counts by
-the bit pattern read as UNSIGNED - the carrier words are widened to int64
-first, or a word with bit 31 set would sort as negative.
+packet payload); ``window=None`` sorts the whole stream. O1/O2 orders are
+one ``ops.descending_perm_rows`` call each (the popcount window-order
+kernel on CUDA, a stable ``torch.argsort`` on the CPU). The ``pattern``
+tiebreak orders equal counts by the bit pattern read as UNSIGNED - a word
+with bit 31 set must not sort as negative.
 """
 from __future__ import annotations
 
@@ -29,14 +29,13 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .bits import bit_width, popcount, unsigned_view, widen_unsigned
+from .bits import bit_width, unsigned_view, words32
 
 __all__ = [
     "Ordered",
     "PairedOrdered",
     "pad_to_window",
     "descending_perm",
-    "descending_perm_rows",
     "descending_order",
     "affiliated_order",
     "separated_order",
@@ -86,38 +85,25 @@ def pad_to_window(values: torch.Tensor, window: Optional[int]) -> torch.Tensor:
     return flat
 
 
-def descending_perm_rows(rows: torch.Tensor,
-                         tiebreak: str = "stable") -> torch.Tensor:
-    """Per-row permutation (int64, (R, W)) sorting each row of ``rows`` by
-    '1'-bit count, descending.
-
-    ``stable`` keeps the original order among equal counts. ``pattern``
-    orders equal counts by bit pattern, descending as unsigned, then by
-    position: the reference's two stable sorts (``~u`` ascending, then the
-    count) are one stable sort on the composite key ``(-count, ~u)``, which
-    this builds in int64 from the zero-extended pattern.
-    """
-    counts = popcount(rows).to(torch.int64)
-    if tiebreak == "stable":
-        key = -counts
-    elif tiebreak == "pattern":
-        nbits = bit_width(unsigned_view(rows).dtype)
-        inv = ((1 << nbits) - 1) - widen_unsigned(rows)      # ~u, unsigned
-        key = ((nbits - counts) << nbits) | inv
-    else:
-        raise ValueError(f"unknown tiebreak {tiebreak!r}")
-    return torch.argsort(key, dim=-1, stable=True)
-
-
 def descending_perm(values: torch.Tensor, window: Optional[int] = None,
                     tiebreak: str = "stable") -> torch.Tensor:
     """Permutation sorting ``values`` by '1'-bit count, descending, inside
-    each window; flat int64 indices into the zero-padded stream."""
+    each window; flat int64 indices into the zero-padded stream.
+
+    ``stable`` keeps the original order among equal counts; ``pattern``
+    orders equal counts by bit pattern, descending as unsigned, then by
+    position (the reference's ``argsort(~u)``, then a stable
+    ``argsort(-count)``). One ``ops.descending_perm_rows`` call: a single
+    launch of the popcount window-order kernel on CUDA, its plain version
+    on the CPU.
+    """
+    from ..kernels import ops
+
     flat = pad_to_window(values, window)
     nw, w = _windowed(flat.shape[0], window)
-    perm = descending_perm_rows(flat.reshape(nw, w), tiebreak)
-    offset = (torch.arange(nw, device=perm.device) * w)[:, None]
-    return (perm + offset).reshape(-1)
+    nbits = bit_width(unsigned_view(flat).dtype)
+    return ops.descending_perm_rows(words32(flat).reshape(nw, w), tiebreak,
+                                    nbits)
 
 
 def apply_permutation(values: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

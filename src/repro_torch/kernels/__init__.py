@@ -9,4 +9,9 @@ in ``ref``. ``min_hamming`` is the O3 chain: each chain call is one launch
 of ``chain_greedy`` (``csrc/chain_greedy.cu``), which runs every step of
 every chain in the kernel; ``chain_select`` is the one-step body that the
 reference's ``chain_select_pallas`` is, kept as an entry point of its own.
+Where the port orders by popcount, the counts never leave the card:
+``popcount_order`` (``csrc/popcount_order.cu``) turns each window's counts
+into its O1/O2 permutation (``ops.descending_perm_rows``) or its O3 chain
+preamble (``ops.chain_inputs``) in one launch; ``popcount`` stays the
+one-to-one popcount for the BT measurements and the chain costs.
 """

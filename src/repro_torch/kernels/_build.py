@@ -7,7 +7,8 @@ checkout's ``build/kernels/`` (listed in ``.gitignore``), named by a hash of
 the source and the flags, so an edited source is never served a stale
 library. Nothing is built when a module is imported: the first launch
 builds, and :func:`build_all` builds every kernel at once with one ``nvcc``
-per source, all started together.
+per source, all started together. Kernels that share a source (two entry
+points of one ``.cu``) share its library.
 """
 from __future__ import annotations
 
@@ -72,7 +73,7 @@ class CudaKernel:
         headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
         h = hashlib.sha256(self.source.read_bytes() + headers
                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}_{h}.so"
+        return BUILD_DIR / f"lib{self.source.stem}_{h}.so"
 
     def _command(self, tmp: Path) -> List[str]:
         return [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
@@ -136,13 +137,16 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
     """Build (in parallel) and load every kernel not yet loaded; returns the
     seconds each build took (0.0 for a library found already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    pending = []
+    pending = {}
     times: Dict[str, float] = {}
     for k in kernels:
         if k._fn is not None:
             times[k.name] = 0.0
             continue
         out = k.library_path()
+        if out in pending:
+            pending[out][0].append(k)
+            continue
         if out.exists():
             k._load(out)
             times[k.name] = 0.0
@@ -150,17 +154,19 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, float]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(k._command(tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        pending.append((k, out, tmp, proc, time.perf_counter()))
+        pending[out] = ([k], tmp, proc, time.perf_counter())
     failures: List[str] = []
-    for k, out, tmp, proc, t0 in pending:
+    for out, (ks, tmp, proc, t0) in pending.items():
         log, _ = proc.communicate()
-        times[k.name] = time.perf_counter() - t0
-        k.build_log = log
+        for k in ks:
+            times[k.name] = time.perf_counter() - t0
+            k.build_log = log
         if proc.returncode != 0:
-            failures.append(f"{k.name} ({k.source.name}):\n{log}")
+            failures.append(f"{ks[0].source.name}:\n{log}")
             continue
         os.replace(tmp, out)
-        k._load(out)
+        for k in ks:
+            k._load(out)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return times

@@ -18,10 +18,12 @@ Layout: the reference's two ``vmap``s (windows, starts) are one explicit
 ``(R, S)`` batch, and its ``lax.scan`` - all ``w - 1`` steps of every chain
 - is one :func:`repro_torch.kernels.ops.chain_greedy` call: one launch of
 the Hopper chain kernel on CUDA, the plain step loop
-(``ref.chain_greedy_ref``) on the CPU. The partition, the identity cost,
-the start ranks and the best-start choice around it are a handful of torch
-calls per chain call. Every key is int32, with the reference's penalties,
-which bound the window to ``_MAX_WINDOW``.
+(``ref.chain_greedy_ref``) on the CPU. The partition, the identity cost
+and the start ranks before it are one ``ops.chain_inputs`` call (one
+launch of the popcount window-order kernel on CUDA,
+``ref.chain_inputs_ref`` on the CPU); the best-start choice after it is a
+handful of torch calls. Every key is int32, with the reference's
+penalties, which bound the window to ``_MAX_WINDOW``.
 """
 from __future__ import annotations
 
@@ -78,31 +80,6 @@ def _dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d[0] if d.shape[0] == 1 else d.sum(0, dtype=torch.int32)
 
 
-def _chain_inputs(u: torch.Tensor, starts: int):
-    """A (P, R, W) stack -> the chain's inputs: the zeros-to-tail partition
-    ``part`` (R, W), the partitioned planes ``q``, the live counts ``z``,
-    the partitioned identity's cost ``cid`` and the (R, S) start
-    positions."""
-    p, r, w = u.shape
-    dev = u.device
-    pc = popcount(u)
-    pops = pc[0] if p == 1 else pc.sum(0, dtype=torch.int32)     # (R, W)
-    nz = pops > 0
-    z = nz.sum(1, dtype=torch.int32)
-    part = torch.argsort((~nz).to(torch.int8), dim=1, stable=True)
-    q = torch.gather(u, 2, part[None].expand(p, r, w))
-    cid = (_dist(q[..., :-1], q[..., 1:]).sum(1, dtype=torch.int32)
-           if w > 1 else torch.zeros((r,), dtype=torch.int32, device=dev))
-
-    # Start positions: descending-popcount ranks 0, z/S, 2z/S, ... - all of
-    # 0..z-1 when z <= starts (the exhaustive small-window regime).
-    dperm = torch.argsort(-torch.gather(pops, 1, part), dim=1, stable=True)
-    ranks = (torch.arange(starts, dtype=torch.int64, device=dev)[None, :]
-             * z[:, None].to(torch.int64)) // starts
-    start_pos = torch.gather(dperm, 1, ranks)                    # (R, S)
-    return part, q, z, cid, start_pos
-
-
 def _chain_windows(u: torch.Tensor, beam: int, starts: int):
     """Chain every window of a (P, R, W) stack: partition zeros to the
     tail, run ``starts`` greedy chains, fall back to the partitioned
@@ -110,7 +87,7 @@ def _chain_windows(u: torch.Tensor, beam: int, starts: int):
     r, w = u.shape[1:]
     dev = u.device
     idx = torch.arange(w, dtype=torch.int32, device=dev)
-    part, q, z, cid, start_pos = _chain_inputs(u, starts)
+    part, q, z, cid, start_pos = ops.chain_inputs(u, starts)
     orders, costs = ops.chain_greedy(q, z, start_pos, beam)
     # First minimum over the starts, written out: (cost, start) is unique.
     sbest = (costs.to(torch.int64) * starts

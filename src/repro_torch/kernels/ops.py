@@ -13,16 +13,18 @@ import torch
 from ..core.bits import bit_width, from_words32, unsigned_view, words32
 from . import (bitonic_sort as _bitonic, bt_count, chain_greedy as _greedy,
                chain_select as _select, order_unit as _order_unit,
-               popcount as _popcount, ref, router_step as _router)
+               popcount as _popcount, popcount_order as _porder, ref,
+               router_step as _router)
 from ._build import build_all as _build_all
 
 __all__ = ["popcount", "bt_boundaries", "router_step", "sort_windows_desc",
-           "order_unit", "chain_select", "chain_greedy", "KERNELS",
+           "order_unit", "chain_select", "chain_greedy",
+           "descending_perm_rows", "chain_inputs", "KERNELS",
            "reset_launch_counts", "build_all"]
 
 KERNELS = (_router.KERNEL, _popcount.KERNEL, bt_count.KERNEL,
            _bitonic.KERNEL, _order_unit.KERNEL, _select.KERNEL,
-           _greedy.KERNEL)
+           _greedy.KERNEL, *_porder.KERNELS)
 
 
 def reset_launch_counts() -> None:
@@ -42,6 +44,44 @@ def popcount(values: torch.Tensor) -> torch.Tensor:
         return ref.popcount_ref(values)
     words = words32(values).contiguous()
     return _popcount.popcount_words(words)
+
+
+def descending_perm_rows(rows: torch.Tensor, tiebreak: str,
+                         nbits: int) -> torch.Tensor:
+    """Flat int64 permutation sorting each window (row) of ``rows`` by
+    '1'-bit count, descending, with the window offsets added (row ``r``'s
+    indices run over ``[r W, (r + 1) W)``). ``rows`` is (R, W) int32
+    carrying the zero-extended ``nbits``-wide words (8, 16 or 32: the
+    carrier cannot say how wide ``~u`` is). ``tiebreak``: ``stable`` (ties
+    in position order) or ``pattern`` (ties by bit pattern, descending as
+    unsigned, then position)."""
+    if rows.dim() != 2 or rows.dtype != torch.int32:
+        raise ValueError(f"rows must be (R, W) int32, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if nbits not in (8, 16, 32):
+        raise ValueError(f"nbits must be 8, 16 or 32, got {nbits}")
+    if tiebreak not in ("stable", "pattern"):
+        raise ValueError(f"unknown tiebreak {tiebreak!r}")
+    if rows.device.type != "cuda":
+        return ref.descending_perm_rows_ref(rows, tiebreak, nbits)
+    return _porder.descending_perm(rows.contiguous(), tiebreak, nbits)
+
+
+def chain_inputs(u: torch.Tensor, starts: int):
+    """The O3 chain preamble of (P, R, W) int32 planes (P = 1 or 2, W >=
+    1): ``(part, q, z, cid, start_pos)`` - the zeros-to-tail partition
+    (R, W) int64, the partitioned planes, the (R,) int32 live counts, the
+    (R,) int32 cost of the partitioned identity order and the (R, starts)
+    int64 start positions (descending-count ranks ``(s z) // starts``)."""
+    if u.dim() != 3 or u.shape[0] not in (1, 2) or u.dtype != torch.int32:
+        raise ValueError(f"u must be (P, R, W) int32 with P in (1, 2), got "
+                         f"{tuple(u.shape)} {u.dtype}")
+    if u.shape[2] < 1 or starts < 1:
+        raise ValueError(f"chain_inputs needs W >= 1 and starts >= 1, got "
+                         f"W = {u.shape[2]}, starts = {starts}")
+    if u.device.type != "cuda":
+        return ref.chain_inputs_ref(u, starts)
+    return _porder.chain_inputs(u.contiguous(), starts)
 
 
 def bt_boundaries(words: torch.Tensor) -> torch.Tensor:

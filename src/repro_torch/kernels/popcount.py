@@ -5,8 +5,9 @@ kernel ran a SWAR reduction over (8k, 128k) tiles because the TPU vector
 unit has no popcount; Hopper has ``__popc``, so the kernel is one load, one
 instruction and one store per word. Bound on the card: memory (8 bytes per
 word against one integer op), so the design is 16-byte vector loads and
-stores, no padding. The port's ordering keys (O1/O2, ``core/bits.popcount``
-on CUDA tensors) go through it.
+stores, no padding. ``core/bits.popcount`` on CUDA tensors goes through
+it (the expected-BT and chain-cost counts); the orderings' counts go
+through ``popcount_order``, which never writes them out.
 """
 from __future__ import annotations
 

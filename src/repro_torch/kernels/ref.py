@@ -8,16 +8,43 @@ from __future__ import annotations
 
 import torch
 
-from ..core.bits import popcount32, words32
+from ..core.bits import popcount32, widen_unsigned, words32
 
 __all__ = ["popcount_ref", "bt_boundaries_ref", "router_step_ref",
            "sort_windows_ref", "order_unit_ref", "chain_select_ref",
-           "chain_greedy_ref"]
+           "chain_greedy_ref", "descending_perm_rows_ref",
+           "chain_inputs_ref"]
 
 
 def popcount_ref(values: torch.Tensor) -> torch.Tensor:
     """'1'-bit count per element (int32), any dtype with an unsigned view."""
     return popcount32(words32(values))
+
+
+def descending_perm_rows_ref(rows: torch.Tensor, tiebreak: str,
+                             nbits: int) -> torch.Tensor:
+    """Flat int64 permutation sorting each (R, W) row of int32 carriers of
+    zero-extended ``nbits``-wide words by '1'-bit count, descending,
+    window offsets added.
+
+    ``stable`` keeps the original order among equal counts. ``pattern``
+    orders equal counts by bit pattern, descending as unsigned, then by
+    position: the reference's two stable sorts (``~u`` ascending, then the
+    count) are one stable sort on the composite key ``(-count, ~u)``, which
+    this builds in int64 from the zero-extended pattern.
+    """
+    counts = popcount32(rows).to(torch.int64)
+    if tiebreak == "stable":
+        key = -counts
+    elif tiebreak == "pattern":
+        inv = ((1 << nbits) - 1) - widen_unsigned(rows)      # ~u, unsigned
+        key = ((nbits - counts) << nbits) | inv
+    else:
+        raise ValueError(f"unknown tiebreak {tiebreak!r}")
+    perm = torch.argsort(key, dim=-1, stable=True)
+    nw, w = rows.shape
+    offset = (torch.arange(nw, device=perm.device) * w)[:, None]
+    return (perm + offset).reshape(-1)
 
 
 def bt_boundaries_ref(words: torch.Tensor) -> torch.Tensor:
@@ -102,6 +129,31 @@ def _dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Summed XOR-popcount distance over the leading plane axis (int32)."""
     d = popcount32(a ^ b)
     return d[0] if d.shape[0] == 1 else d.sum(0, dtype=torch.int32)
+
+
+def chain_inputs_ref(u: torch.Tensor, starts: int):
+    """A (P, R, W) int32 stack -> the chain's inputs: the zeros-to-tail
+    partition ``part`` (R, W) int64, the partitioned planes ``q``, the live
+    counts ``z``, the partitioned identity's cost ``cid`` and the (R, S)
+    int64 start positions."""
+    p, r, w = u.shape
+    dev = u.device
+    pc = popcount32(u)
+    pops = pc[0] if p == 1 else pc.sum(0, dtype=torch.int32)     # (R, W)
+    nz = pops > 0
+    z = nz.sum(1, dtype=torch.int32)
+    part = torch.argsort((~nz).to(torch.int8), dim=1, stable=True)
+    q = torch.gather(u, 2, part[None].expand(p, r, w))
+    cid = (_dist(q[..., :-1], q[..., 1:]).sum(1, dtype=torch.int32)
+           if w > 1 else torch.zeros((r,), dtype=torch.int32, device=dev))
+
+    # Start positions: descending-popcount ranks 0, z/S, 2z/S, ... - all of
+    # 0..z-1 when z <= starts (the exhaustive small-window regime).
+    dperm = torch.argsort(-torch.gather(pops, 1, part), dim=1, stable=True)
+    ranks = (torch.arange(starts, dtype=torch.int64, device=dev)[None, :]
+             * z[:, None].to(torch.int64)) // starts
+    start_pos = torch.gather(dperm, 1, ranks)                    # (R, S)
+    return part, q, z, cid, start_pos
 
 
 def chain_greedy_ref(q: torch.Tensor, z: torch.Tensor, start: torch.Tensor,

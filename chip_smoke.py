@@ -13,14 +13,19 @@ those paths against its plain PyTorch version:
                ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
                nvcc per source, all started together;
  3. kernels  - each kernel == its plain version, exactly: popcount on 2^20
-               words, the BT counter on (4097, 16) words, the router step
+               words, the BT counter (counts, total, both in one launch)
+               at F = 1-3 x L = 1, 3, 8, 16, 33, 130, at (4097, 16),
+               (7778, 8), off 16- and 8-byte alignment and at (2^20, 8),
+               the router step
                over 512 cycles of a synthetic 6-lane batch on 4x4, 8x8 and
                16x16 meshes, one for each shared-memory layout (all 13 state
                leaves after every 128-cycle chunk; the FIFO's phantom router
                row excluded), the window sort on tie-heavy keys at (512, 512)
                and (37, 128) with float32 payload bits, the ordering unit at
-               (512, 512), the chain select on 1-2 planes at W = 28, 152,
-               400 and 4096, the whole chain on 1-2 planes at W = 4, 31,
+               (512, 512), the chain select on 1-2 planes at W = 1, 28,
+               152, 256, 400, 1024, 1025, 4096 and 16,000 on the chain's
+               penalties and on keys that tie, wrap past INT32_MAX or hit
+               INT32_MIN, and R = 0, the whole chain on 1-2 planes at W = 4, 31,
                152, 400, 4096 and 16,000; the popcount window order's
                O1/O2 permutation (through ``ordering.descending_perm``)
                on tie-heavy float32 words with bit 31 set, int8 / uint8 /
@@ -31,7 +36,9 @@ those paths against its plain PyTorch version:
                <= starts rows and a zero-padded tail, and R = 0;
  4. no-NoC   - the paper's Tab. I path: the trained LeNet's weight stream
                under O0 and O1 (stable, pattern), float32 and fixed8, BT
-               measured through the BT-counter kernel;
+               measured through the BT-counter kernel: one launch for each
+               of the 6 measured streams, and in one measure's profiler
+               window no aten::sum beyond the expected BT's own;
  5. main     - ``run_sweep`` on the trained LeNet with one glyph image at
                full width (every packet of the inference, streamed) over
                4x4_mc2, 8x8_mc4, 8x8_mc8 x float32/fixed8 x stable/pattern x
@@ -64,8 +71,11 @@ those paths against its plain PyTorch version:
                the router step also on a warm state (each paper mesh's
                full-width batch after 4,096 cycles), in microseconds per
                simulated cycle; the window order at conv2's (1600, 150)
-               float32 operands (stable and pattern) and the chain
-               preamble at conv2 under O3a (2 x 1,600 x 152).
+               float32 operands (stable and pattern), the chain
+               preamble at conv2 under O3a (2 x 1,600 x 152), and the BT
+               counter at the no-NoC shape (total alone, with the host's
+               time per measure) and at (2^20, 8) (counts and total, and
+               the total alone).
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
@@ -226,6 +236,31 @@ def random_words(rng, shape):
                             .astype(np.uint32).view(np.int32)).cuda()
 
 
+def select_penalty(kind: str, rng, xs, k2: int):
+    """(R, W) int32 chain-select penalties on the card: the chain's four
+    classes; tie-heavy (-idx + {0, 1, 2}: keys dvec * k2 + small); keys
+    that wrap past INT32_MAX; or the chain's classes with one key a row set
+    to INT32_MIN."""
+    import torch
+    r, w = xs[0].shape
+    idx = np.arange(w, dtype=np.int64)
+    if kind == "chain":
+        pen = rng.choice(PENALTIES, (r, w)).astype(np.int64)
+    elif kind == "ties":
+        pen = -idx[None, :] + rng.integers(0, 3, (r, w))
+    elif kind == "wrap":
+        pen = (2**31 - 1) - rng.integers(0, 40 * w + 1, (r, w))
+    else:
+        from repro_torch.kernels import ref
+        pen = rng.choice(PENALTIES, (r, w)).astype(np.int64)
+        d = sum(ref.popcount_ref(x) for x in xs).cpu().numpy()
+        lane = rng.integers(0, w, r)
+        rows = np.arange(r)
+        pen[rows, lane] = -(2**31) - d[rows, lane].astype(np.int64) * k2 - lane
+    pen = ((pen + 2**31) % 2**32 - 2**31).astype(np.int32)
+    return torch.from_numpy(pen).cuda()
+
+
 def same_bits(a, b) -> bool:
     """Equal shape, dtype and bit pattern (float payloads compared as
     their words)."""
@@ -312,12 +347,30 @@ def main() -> None:
             fail("popcount kernel != plain popcount")
         if int(got[2]) != 1 or int(got[1]) != 32:
             fail("popcount kernel miscounts bit-31 words")
-        words = torch.from_numpy(rng.integers(0, 2**32, (4097, 16),
-                                              dtype=np.uint64)
-                                 .astype(np.uint32).view(np.int32)).cuda()
-        if not torch.equal(bt_count.bt_boundaries(words),
-                           ref.bt_boundaries_ref(words)):
-            fail("BT-counter kernel != plain BT counter")
+        # The BT counter: counts and total in one launch, and each alone,
+        # for F = 1-3 at every chunk width and both sides of the 32-word
+        # segmented-scan limit, off 16- and 8-byte alignment, and at the
+        # bandwidth shape (2^20, 8).
+        bt_cases = [(f_, l_, 0) for f_ in (1, 2, 3)
+                    for l_ in (1, 3, 8, 16, 33, 130)]
+        bt_cases += [(4097, 16, 0), (7778, 8, 0), (4097, 8, 1),
+                     (4097, 8, 2), (1 << 20, 8, 0)]
+        for f_, l_, off in bt_cases:
+            flat = random_words(rng, (off + f_ * l_,))
+            words = flat[off:].view(f_, l_)
+            counts, total = bt_count.bt_count(words)
+            alone, tot_alone = (bt_count.bt_boundaries(words),
+                                bt_count.bt_total(words))
+            want = ref.bt_boundaries_ref(words)
+            want_t = ref.bt_total_ref(words)
+            torch.cuda.synchronize()
+            if not (torch.equal(counts, want) and torch.equal(alone, want)
+                    and torch.equal(total, want_t)
+                    and torch.equal(tot_alone, want_t)):
+                fail(f"BT-counter kernel != plain BT counter at ({f_}, "
+                     f"{l_}), base offset {off} words")
+        print(f"  BT counter == plain (counts, total, both) on "
+              f"{len(bt_cases)} streams", flush=True)
         for mesh in ("4x4_mc2", "8x8_mc4", "16x16_mc16"):
             cfg = mesh_by_name(mesh)
             key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
@@ -368,18 +421,26 @@ def main() -> None:
         torch.cuda.synchronize()
         if not all(same_bits(g.cpu(), w) for g, w in zip(got, want)):
             fail("ordering-unit kernel != plain version at (512, 512)")
-        # Chain select: 1 and 2 planes over the chain's penalty set.
-        for w_ in (28, 152, 400, 4096):
-            r_ = 8 if w_ == 4096 else 256
+        # Chain select: 1 and 2 planes over the chain's penalty set, and on
+        # penalties whose keys tie (-idx + {0, 1, 2}), wrap past INT32_MAX,
+        # or hit INT32_MIN (one lane a row); a warp a row up to W = 1,024,
+        # the shared-memory network above; R = 0.
+        for w_ in (1, 28, 152, 256, 400, 1024, 1025, 4096, 16000):
+            r_ = 2 if w_ >= 16000 else 8 if w_ >= 4096 else 256
             for planes in (1, 2):
-                xs = [random_words(rng, (r_, w_)) for _ in range(planes)]
-                pen = torch.from_numpy(rng.choice(PENALTIES, (r_, w_))).cuda()
-                got = ops.chain_select(xs, pen)
-                want = ref.chain_select_ref(xs, pen, w_)
-                torch.cuda.synchronize()
-                if not all(torch.equal(g, v) for g, v in zip(got, want)):
-                    fail(f"chain-select kernel != plain version at "
-                         f"({r_}, {w_}) with {planes} planes")
+                for kind in ("chain", "ties", "wrap", "int32_min"):
+                    xs = [random_words(rng, (r_, w_)) for _ in range(planes)]
+                    pen = select_penalty(kind, rng, xs, w_)
+                    got = ops.chain_select(xs, pen)
+                    want = ref.chain_select_ref(xs, pen, w_)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, v) for g, v in zip(got, want)):
+                        fail(f"chain-select kernel != plain version at "
+                             f"({r_}, {w_}) with {planes} planes, {kind} "
+                             f"penalties")
+        e = torch.zeros((0, 152), dtype=torch.int32, device="cuda")
+        if any(t.shape != (0, 152) for t in ops.chain_select([e, e], e)):
+            fail("chain-select kernel on R = 0")
         # The whole chain: partitioned planes (zeros at each window's
         # tail), live counts and start positions, at widths up to the
         # score encoding's bound; every width on one or two planes.
@@ -502,9 +563,8 @@ def main() -> None:
                 print(f"  {fmt:8s} {tb:8s} BT/flit {base['bt_per_flit']:.3f}"
                       f" -> {opt['bt_per_flit']:.3f}  reduction {red:.2f}%",
                       flush=True)
-        # The same BT totals from the plain path on the CPU (exact; the
-        # per-flit ratio is a float32 division, which CUDA takes as a
-        # multiply by the reciprocal, so it is held to 1e-6).
+        # The same BT totals and per-flit ratios from the plain path on the
+        # CPU, exactly (measure divides the total on the host either way).
         cpu_stream = stream.cpu()
         for row in tab1:
             fmt = row["case"].split("-")[0]
@@ -514,11 +574,52 @@ def main() -> None:
                                .apply_single(vals, 8))
             if opt["total_bt"] != row["ordered_total_bt"]:
                 fail("no-NoC BT on the card != plain path on the CPU")
-            if not math.isclose(opt["bt_per_flit"],
-                                row["ordered_bt_per_flit"], rel_tol=1e-6):
+            if opt["bt_per_flit"] != row["ordered_bt_per_flit"]:
                 fail("no-NoC BT per flit on the card != the CPU's")
         report["tab1"] = tab1
     nonoc_launches = {k.name: k.launches for k in ops.KERNELS}
+
+    with Phase("no-NoC measure window"):
+        # Six streams were measured on the card above, each one BT-counter
+        # launch. One measure in a profiler window: one launch, and no sum
+        # on the BT side - the aten::sum it holds must be the expected BT's
+        # own float sum (Eq. 3; K2's path), which a window of
+        # expected_bt_stream alone holds too.
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core import bt as bt_mod
+        if nonoc_launches["bt_count"] != 6:
+            fail(f"6 streams measured on the card but "
+                 f"{nonoc_launches['bt_count']} BT-counter launches")
+        s8 = flits.pack(stream, 8)
+        wire.measure(s8)
+        torch.cuda.synchronize()
+
+        def ops_in(fn):
+            before = bt_count.KERNEL.launches
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            counts = {e.key: e.count for e in prof.key_averages()}
+            return counts, bt_count.KERNEL.launches - before
+
+        m_ops, m_k3 = ops_in(lambda: wire.measure(s8))
+        e_ops, _ = ops_in(lambda: float(bt_mod.expected_bt_stream(s8)))
+        m_sums, e_sums = m_ops.get("aten::sum", 0), e_ops.get("aten::sum", 0)
+        if m_k3 != 1:
+            fail(f"one measure made {m_k3} BT-counter launches")
+        if m_sums != e_sums:
+            fail(f"one measure holds {m_sums} aten::sum, the expected BT "
+                 f"alone {e_sums}: a sum is left on the BT side")
+        syncs = {k: m_ops.get(k, 0) for k in ("aten::item", "aten::to",
+                                              "aten::_local_scalar_dense")}
+        print(f"  6 BT-counter launches for 6 measured streams; one measure:"
+              f" 1 launch, aten::sum {m_sums} (expected BT alone {e_sums}), "
+              f"host reads {syncs}", flush=True)
+        report["measure_window"] = {"bt_count_launches": m_k3,
+                                    "aten_sum": m_sums,
+                                    "aten_sum_expected_bt": e_sums,
+                                    "host_reads": syncs}
 
     path = "noc"
     ops.reset_launch_counts()
@@ -856,6 +957,11 @@ def main() -> None:
 
     kernels = []
     with Phase("timing"):
+        def bound_of(nbytes, ops_n):
+            tb_, to_ = nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S
+            return (max(tb_, to_) * 1e3,
+                    "bytes" if tb_ >= to_ else "operations")
+
         # K2 at a main-path shape: conv2's (1600, 150) float32 operands
         # (the largest popcount call of the ordering).
         x = words32(layers[1].weights.contiguous()).contiguous()
@@ -875,28 +981,52 @@ def main() -> None:
             launch_ms=kl, device_ms=dk,
             plain_ms=pms, bound_ms=bound, bound_by="bytes", library_ms=None,
             shape=list(x.shape)))
-        # K3 at the no-NoC shape: the float32 weight stream in 8-lane flits.
+        # K3 at the no-NoC shape: the float32 weight stream in 8-lane flits,
+        # its total alone (what measure takes; one launch a measured
+        # stream), with the host's wall time per measure beside it; then
+        # at the bandwidth shape (2^20, 8), the counts and the total in one
+        # launch, and the total alone. Bytes: the words read once, the
+        # counts written once; operations: XOR, popcount, add a word.
         fw = words32(flits.pack(stream, 8).words).contiguous()
-        f, lanes = fw.shape
-        got = bt_count.bt_boundaries(fw)
-        err = int((got - ref.bt_boundaries_ref(fw)).abs().max())
-        ms = cuda_ms(lambda: bt_count.bt_boundaries(fw), 50)
-        kl = launch_ms(lambda: bt_count.bt_boundaries(fw), 50)
-        dk = device_ms(lambda: bt_count.bt_boundaries(fw), 50)
-        pms = cuda_ms(lambda: ref.bt_boundaries_ref(fw), 50)
-        nbytes = 4 * f * lanes + 4 * (f - 1)
-        ops_n = 3 * (f - 1) * lanes
-        bound = max(nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S) * 1e3
-        kernels.append(dict(
-            name="bt_count", route="cuda",
-            source="src/repro_torch/kernels/csrc/bt_count.cu",
-            replaces="src/repro/kernels/bt_count.py:36",
-            launches=launches["bt_count"], max_abs_err=err, ms=ms,
-            launch_ms=kl, device_ms=dk,
-            plain_ms=pms, bound_ms=bound,
-            bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-            >= ops_n / ALU_OPS_PER_S else "operations",
-            library_ms=None, shape=[f, lanes]))
+        s8 = flits.pack(stream, 8)
+        wire.measure(s8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            wire.measure(s8)
+        measure_ms = (time.perf_counter() - t0) * 1e3 / 50
+        fb = random_words(rng, (1 << 20, 8))
+        for label, xw, counts, total in (
+                ("bt_count", fw, False, True),
+                ("bt_count/bandwidth", fb, True, True),
+                ("bt_count/bandwidth-total", fb, False, True)):
+            f, lanes = xw.shape
+
+            def k3(xw=xw, counts=counts, total=total):
+                return bt_count.bt_count(xw, counts=counts, total=total)
+
+            def p3(xw=xw, counts=counts):
+                c = ref.bt_boundaries_ref(xw)
+                return c, c.sum(dtype=torch.int32)
+
+            got, want = k3(), p3()
+            err = max_err([(g, v) for g, v in zip(got, want)
+                           if g is not None])
+            nbytes = 4 * f * lanes + (4 * (f - 1) if counts else 0) + 4
+            bound, by = bound_of(nbytes, 3 * (f - 1) * lanes)
+            kernels.append(dict(
+                name=label, route="cuda",
+                source="src/repro_torch/kernels/csrc/bt_count.cu",
+                replaces="src/repro/kernels/bt_count.py:36",
+                launches=launches["bt_count"], max_abs_err=err,
+                ms=cuda_ms(k3, 50), launch_ms=launch_ms(k3, 50),
+                device_ms=device_ms(k3, 50), plain_ms=cuda_ms(p3, 50),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library="none: no single call (XOR + popcount)",
+                shape=[f, lanes, "counts+total" if counts else "total"]))
+        kernels[-3]["measure_ms"] = measure_ms
+        print(f"  wire.measure on the (7778, 8) weight stream: "
+              f"{measure_ms:.4f} ms host wall a call", flush=True)
         # K1 at the main-path shape: the full-width 8x8_mc4 batch (12
         # lanes, MC streams padded to 8), one 256-cycle chunk from a cold
         # state.
@@ -997,11 +1127,6 @@ def main() -> None:
                   f" us), {b_w} lanes, {warm[mesh]['flits_in_network']} flits"
                   f" in the network after 4,096 cycles", flush=True)
         kernels[-1]["warm"] = warm
-        def bound_of(nbytes, ops_n):
-            tb_, to_ = nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S
-            return (max(tb_, to_) * 1e3,
-                    "bytes" if tb_ >= to_ else "operations")
-
         def network_ces(r, w):
             """Compare-exchanges of the bitonic network over r rows of w."""
             s = w.bit_length() - 1

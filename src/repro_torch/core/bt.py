@@ -17,6 +17,7 @@ __all__ = [
     "bt_between",
     "bt_stream",
     "bt_per_flit",
+    "per_flit",
     "bt_per_position",
     "ones_prob_per_position",
     "expected_bt_pair",
@@ -32,15 +33,20 @@ def bt_between(flit_a: torch.Tensor, flit_b: torch.Tensor) -> torch.Tensor:
 
 
 def bt_stream(stream: FlitStream) -> torch.Tensor:
-    """Total BTs over a stream of consecutive flits (int32 scalar)."""
+    """Total BTs over a stream of consecutive flits (int32 scalar; one
+    BT-counter launch on the card)."""
     from repro_torch.kernels import ops
-    return ops.bt_boundaries(stream.words).sum(dtype=torch.int32)
+    return ops.bt_total(stream.words)
 
 
 def bt_per_flit(stream: FlitStream) -> torch.Tensor:
     """Average BTs per flit boundary - the paper's Tab. I metric."""
-    n_pairs = max(stream.words.shape[0] - 1, 1)
-    return bt_stream(stream) / n_pairs
+    return per_flit(bt_stream(stream), stream.words.shape[0])
+
+
+def per_flit(total: torch.Tensor, num_flits: int) -> torch.Tensor:
+    """``total`` BTs of a ``num_flits``-flit stream per flit boundary."""
+    return total / max(num_flits - 1, 1)
 
 
 def bt_per_position(stream: FlitStream) -> torch.Tensor:

@@ -3,7 +3,10 @@
 All six of the reference's Pallas kernels are ported, each a ``csrc/*.cu``
 source and a wrapper module: ``router_step``, ``popcount``, ``bt_count``,
 ``bitonic_sort`` (the window sort), ``order_unit`` and ``chain_select``; the
-last three share the bitonic network in ``csrc/bitonic.cuh``. ``ops``
+last three share the bitonic network in ``csrc/bitonic.cuh`` (the chain
+select for rows over 1,024 lanes; it sorts narrower rows a warp a row, in
+registers). ``bt_count`` writes a stream's per-boundary counts, its total
+(``ops.bt_total``) or both in one launch. ``ops``
 dispatches a CUDA tensor to the kernel and a CPU tensor to its plain version
 in ``ref``. ``min_hamming`` is the O3 chain: each chain call is one launch
 of ``chain_greedy`` (``csrc/chain_greedy.cu``), which runs every step of

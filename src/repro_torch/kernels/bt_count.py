@@ -1,30 +1,50 @@
-"""Hopper BT-counter kernel (``csrc/bt_count.cu``): bit transitions at each
-flit boundary of an (F, L) word stream.
+"""Hopper BT-counter kernel (``csrc/bt_count.cu``): bit transitions of an
+(F, L) word stream - the count at each flit boundary, the stream's int32
+total, or both - in one launch.
 
 Replaces ``repro/kernels/bt_count.py`` ``bt_boundaries_pallas``, which took
-two row-shifted (8k, 128k)-padded views so TPU tiles never overlapped. On
-Hopper one warp owns one boundary: its lanes XOR and ``__popc`` the two rows
-and a warp-shuffle sum writes one int32. Bound on the card: memory (each
-word read, one int32 written per boundary; the second read of a row hits
-L2), one XOR, one popcount and one add per word. The no-NoC recorder
-(``core/bt.bt_stream``, ``core/wire.measure``, Table I) goes through it.
+two row-shifted (8k, 128k)-padded views so TPU tiles never overlapped, and
+the ``jnp.sum`` that XLA fused behind it. On Hopper the work is one flat
+stream of words, each against the word L further on, in 16-byte chunks
+where L allows: every lane works at any L, the counts come from segmented
+warp scans (a warp a boundary for rows wider than 32 words), and the total
+from one accumulator that the last block to finish reads out. Bound on the
+card: bytes (each word read once, one int32 written per boundary). The
+no-NoC recorder (``core/bt.bt_stream``, ``core/wire.measure``, Table I)
+takes its total: one launch and no separate sum.
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
-from ._build import I32, P, CudaKernel, stream
+from ._build import I32, I64, P, CudaKernel, stream
 
-__all__ = ["KERNEL", "bt_boundaries"]
+__all__ = ["KERNEL", "bt_count", "bt_boundaries", "bt_total"]
 
 KERNEL = CudaKernel(
-    "bt_count", "bt_count.cu", "bt_boundaries", [P, P, I32, I32, P],
+    "bt_count", "bt_count.cu", "bt_count", [P, P, P, P, I64, I32, P],
     replaces="src/repro/kernels/bt_count.py:36 bt_boundaries_pallas")
 
+# The kernel's two-word total workspace (tickets drawn, running sum), one a
+# (device, stream): zeroed once here, left zero by every launch that uses it.
+_WORKSPACES: Dict[Tuple[int, int], torch.Tensor] = {}
 
-def bt_boundaries(words: torch.Tensor) -> torch.Tensor:
-    """Transitions per flit boundary of an (F, L) int32 CUDA word stream ->
-    (F-1,) int32."""
+
+def _workspace(device: torch.device, handle: int) -> torch.Tensor:
+    key = (device.index, handle)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = torch.zeros(2, dtype=torch.int32,
+                                            device=device)
+    return ws
+
+
+def bt_count(words: torch.Tensor, counts: bool = True, total: bool = True):
+    """``(counts, total)`` of an (F, L) int32 CUDA word stream in one
+    launch: the (F-1,) int32 transitions at each boundary and their int32
+    sum (wrapping as an int32 sum does), each None when not asked for."""
     if words.device.type != "cuda":
         raise ValueError(f"bt_count kernel needs a CUDA tensor, got "
                          f"{words.device}")
@@ -33,9 +53,30 @@ def bt_boundaries(words: torch.Tensor) -> torch.Tensor:
                         f"{tuple(words.shape)} {words.dtype}")
     if not words.is_contiguous():
         raise ValueError("bt_count kernel needs a contiguous tensor")
+    if not (counts or total):
+        raise ValueError("bt_count: ask for the counts, the total or both")
     f, lanes = words.shape
-    out = torch.empty((max(f - 1, 0),), dtype=torch.int32,
-                      device=words.device)
-    if f > 1:
-        KERNEL.launch(words.data_ptr(), out.data_ptr(), f, lanes, stream())
-    return out
+    dev = words.device
+    out = (torch.empty((max(f - 1, 0),), dtype=torch.int32, device=dev)
+           if counts else None)
+    tot = torch.empty((), dtype=torch.int32, device=dev) if total else None
+    if total or f > 1:
+        handle = stream()
+        ws = _workspace(dev, handle) if total else None
+        KERNEL.launch(words.data_ptr(),
+                      out.data_ptr() if counts else None,
+                      tot.data_ptr() if total else None,
+                      ws.data_ptr() if total else None, f, lanes, handle)
+    return out, tot
+
+
+def bt_boundaries(words: torch.Tensor) -> torch.Tensor:
+    """Transitions per flit boundary of an (F, L) int32 CUDA word stream ->
+    (F-1,) int32."""
+    return bt_count(words, counts=True, total=False)[0]
+
+
+def bt_total(words: torch.Tensor) -> torch.Tensor:
+    """Total transitions over an (F, L) int32 CUDA word stream -> int32
+    scalar."""
+    return bt_count(words, counts=False, total=True)[1]

@@ -4,12 +4,16 @@ select body of one O3 chain step.
 Replaces ``repro/kernels/min_hamming.py`` ``chain_select_pallas`` (body
 ``_make_select_kernel``). For each row of one or two XOR planes it returns
 ``dvec`` (the summed ``__popc`` distance per lane) and ``order`` (the lane
-indices sorted ascending by ``dvec * k2 + idx + penalty``, int32 arithmetic
-that wraps as the plain version's does). The row is padded in shared memory
-to the next power of two with lanes that sort behind every real lane, and
-the shared bitonic network (``csrc/bitonic.cuh``) sorts on (key, lane
-index), which is a stable ascending sort for any keys. Rows up to 16,384
-lanes fit a block; wider ones raise, naming the width.
+indices sorted stably ascending by ``dvec * k2 + idx + penalty``, int32
+arithmetic that wraps as the plain version's does) - the order of the
+reference's ``_select_beam`` for any penalty, ties and ``INT32_MIN``
+included (the Pallas kernel's negated, unstable network is not; ROADMAP
+C10). Rows up to 1,024 lanes are sorted by one warp in registers: each
+element packs (key, lane) into one word - 32 bits when the bits that vary
+across the row's keys and the lane index fit, else 64 - and the bitonic
+network's cross-lane substages are warp shuffles, with no block barrier.
+Wider rows, up to 16,384 lanes, take the shared-memory network of
+``csrc/bitonic.cuh`` on (key, lane); wider ones raise, naming the width.
 """
 from __future__ import annotations
 

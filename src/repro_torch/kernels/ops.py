@@ -17,8 +17,8 @@ from . import (bitonic_sort as _bitonic, bt_count, chain_greedy as _greedy,
                router_step as _router)
 from ._build import build_all as _build_all
 
-__all__ = ["popcount", "bt_boundaries", "router_step", "sort_windows_desc",
-           "order_unit", "chain_select", "chain_greedy",
+__all__ = ["popcount", "bt_boundaries", "bt_total", "router_step",
+           "sort_windows_desc", "order_unit", "chain_select", "chain_greedy",
            "descending_perm_rows", "chain_inputs", "KERNELS",
            "reset_launch_counts", "build_all"]
 
@@ -89,6 +89,14 @@ def bt_boundaries(words: torch.Tensor) -> torch.Tensor:
     if words.device.type != "cuda":
         return ref.bt_boundaries_ref(words)
     return bt_count.bt_boundaries(words32(words).contiguous())
+
+
+def bt_total(words: torch.Tensor) -> torch.Tensor:
+    """Total bit transitions over an (F, L) flit stream -> int32 scalar,
+    summed as an int32 sum wraps (one launch on the card)."""
+    if words.device.type != "cuda":
+        return ref.bt_total_ref(words)
+    return bt_count.bt_total(words32(words).contiguous())
 
 
 def router_step(state, wire, mc_nodes, cycles: int, mesh_key,

@@ -10,7 +10,8 @@ import torch
 
 from ..core.bits import popcount32, widen_unsigned, words32
 
-__all__ = ["popcount_ref", "bt_boundaries_ref", "router_step_ref",
+__all__ = ["popcount_ref", "bt_boundaries_ref", "bt_total_ref",
+           "router_step_ref",
            "sort_windows_ref", "order_unit_ref", "chain_select_ref",
            "chain_greedy_ref", "descending_perm_rows_ref",
            "chain_inputs_ref"]
@@ -52,6 +53,12 @@ def bt_boundaries_ref(words: torch.Tensor) -> torch.Tensor:
     (F-1,) int32 (the paper's Fig. 8 recorder)."""
     w = words32(words)
     return popcount32(w[:-1] ^ w[1:]).sum(dim=-1, dtype=torch.int32)
+
+
+def bt_total_ref(words: torch.Tensor) -> torch.Tensor:
+    """Total bit transitions over an (F, L) word stream -> int32 scalar
+    (an int32 sum of the boundary counts)."""
+    return bt_boundaries_ref(words).sum(dtype=torch.int32)
 
 
 def router_step_ref(state, wire, mc_nodes: torch.Tensor, cycles: int,

@@ -122,17 +122,28 @@ def test_popcount_kernel_equals_plain(n):
 
 @pytest.mark.cuda
 @cuda
-@pytest.mark.parametrize("f,lanes", [(1, 16), (2, 1), (17, 16), (4097, 16),
-                                     (9, 130)])
-def test_bt_count_kernel_equals_plain(f, lanes):
+@pytest.mark.parametrize("f,lanes,offset", [
+    (1, 16, 0), (2, 1, 0), (17, 16, 0), (4097, 16, 0), (9, 130, 0),
+    (1, 1, 0), (2, 3, 0), (3, 8, 0), (3, 33, 0), (200, 1, 0), (77, 3, 0),
+    (301, 8, 0), (129, 12, 0), (65, 17, 0), (40, 32, 0), (7778, 8, 0),
+    (33, 8, 2), (33, 8, 1), (5, 0, 0)])
+def test_bt_count_kernel_equals_plain(f, lanes, offset):
+    """Counts and total in one launch, and each alone, at every chunk width
+    (16-, 8- and 4-byte loads; ``offset`` words shift the base off 16-byte
+    alignment) and on both sides of the 32-word segmented-scan limit."""
     from repro_torch.kernels import bt_count as k, ref
-    rng = np.random.default_rng(f * lanes)
-    w = rng.integers(0, 2**32, (f, lanes), dtype=np.uint64).astype(np.uint32)
-    x = torch.from_numpy(w.view(np.int32)).cuda()
-    got = k.bt_boundaries(x)
+    rng = np.random.default_rng(f * lanes + offset)
+    buf = rng.integers(0, 2**32, offset + f * lanes,
+                       dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(buf.view(np.int32)).cuda()[offset:].view(f, lanes)
+    counts, total = k.bt_count(x)
+    alone, tot_alone = k.bt_boundaries(x), k.bt_total(x)
     torch.cuda.synchronize()
-    assert got.shape == (f - 1,)
-    assert torch.equal(got.cpu(), ref.bt_boundaries_ref(x.cpu()))
+    assert counts.shape == (max(f - 1, 0),) and total.shape == ()
+    want = ref.bt_boundaries_ref(x.cpu())
+    assert torch.equal(counts.cpu(), want)
+    assert torch.equal(alone.cpu(), want)
+    assert int(total) == int(tot_alone) == int(ref.bt_total_ref(x.cpu()))
 
 
 @pytest.fixture
@@ -249,20 +260,47 @@ def test_order_unit_kernel_equals_plain(r, w):
     assert torch.equal(perm.cpu(), want_perm)
 
 
+def _select_penalty(kind, rng, r, w, xors):
+    """(R, W) int32 penalties: the chain's four classes; tie-heavy (keys
+    dvec * W + small); keys that wrap past INT32_MAX; or the chain's
+    classes with one key of each row set to INT32_MIN."""
+    chain = np.array([0, 1 << 28, 1 << 30, (1 << 30) + (1 << 28)], np.int64)
+    idx = np.arange(w, dtype=np.int64)
+    if kind == "chain":
+        pen = rng.choice(chain, (r, w))
+    elif kind == "ties":
+        pen = -idx[None, :] + rng.integers(0, 3, (r, w))
+    elif kind == "wrap":
+        pen = (2**31 - 1) - rng.integers(0, 40 * w + 1, (r, w))
+    else:
+        pen = rng.choice(chain, (r, w))
+        d = sum(np.vectorize(lambda v: bin(int(v)).count("1"))(x)
+                for x in xors) if r and w else 0
+        for i in range(r):
+            j = int(rng.integers(0, w))
+            pen[i, j] = -(2**31) - int(d[i, j]) * w - j
+    return ((pen + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
 @pytest.mark.cuda
 @cuda
+@pytest.mark.parametrize("kind", ["chain", "ties", "wrap", "int32_min"])
 @pytest.mark.parametrize("r,w,planes", [(1, 1, 1), (3, 17, 1), (5, 130, 2),
                                         (64, 152, 2), (2, 400, 1),
-                                        (1, 4096, 2), (1, 16000, 1)])
-def test_chain_select_kernel_equals_plain(r, w, planes):
+                                        (1, 4096, 2), (1, 16000, 1),
+                                        (9, 28, 2), (4, 256, 1),
+                                        (3, 1024, 2), (2, 1025, 1),
+                                        (0, 152, 2)])
+def test_chain_select_kernel_equals_plain(r, w, planes, kind):
+    """Both kernels (a warp a row up to W = 1,024, the shared-memory network
+    above) against the plain stable order, on penalties whose keys tie,
+    wrap, or hit INT32_MIN."""
     from repro_torch.kernels import chain_select as k, ref
     rng = np.random.default_rng(r * 7 + w + planes)
-    xors = [torch.from_numpy(rng.integers(0, 2**32, (r, w), dtype=np.uint64)
-                             .astype(np.uint32).view(np.int32))
+    xors = [rng.integers(0, 2**32, (r, w), dtype=np.uint64).astype(np.uint32)
             for _ in range(planes)]
-    pen = torch.from_numpy(rng.choice(
-        np.array([0, 1 << 28, 1 << 30, (1 << 30) + (1 << 28)], np.int32),
-        (r, w)).astype(np.int32))
+    pen = torch.from_numpy(_select_penalty(kind, rng, r, w, xors))
+    xors = [torch.from_numpy(x.view(np.int32)) for x in xors]
     dvec, order = k.chain_select([x.cuda() for x in xors], pen.cuda(), w)
     torch.cuda.synchronize()
     want_d, want_o = ref.chain_select_ref(xors, pen, w)

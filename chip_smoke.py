@@ -6,24 +6,29 @@ Drives the port's paths on the card and holds every Hopper kernel of
 those paths against its plain PyTorch version:
 
  1. device   - needs CUDA; prints the card's name and power limit;
- 2. build    - builds the nine kernels (router step, popcount, BT counter,
-               window sort, ordering unit, chain select, chain, and the
-               popcount window order's two entry points, descending_perm
-               and chain_inputs, which share one source) from
-               ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
-               nvcc per source, all started together;
+ 2. build    - builds the ten kernels (router step, popcount, the BT
+               counter's two entry points, bt_count and bt_measure, which
+               share one source, window sort, ordering unit, chain select,
+               chain, and the popcount window order's two entry points,
+               descending_perm and chain_inputs, which share one source)
+               from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a,
+               one nvcc per source, all started together;
  3. kernels  - each kernel == its plain version, exactly: popcount on 2^20
                words, the BT counter (counts, total, both in one launch)
-               at F = 1-3 x L = 1, 3, 8, 16, 33, 130, at (4097, 16),
-               (7778, 8), off 16- and 8-byte alignment and at (2^20, 8),
-               the router step
+               and its measure sums (total, S1, S2) at F = 1-3 x L = 1, 3,
+               8, 16, 33, 130, at (4097, 16), (7778, 8), off 16- and
+               8-byte alignment and at (2^20, 8), the measure sums also on
+               the all-ones (2^17 + 1, 32) stream (S2 = 2^32), the router
+               step
                over 512 cycles of a synthetic 6-lane batch on 4x4, 8x8 and
                16x16 meshes, one for each shared-memory layout (all 13 state
                leaves after every 128-cycle chunk; the FIFO's phantom router
                row excluded), the window sort on tie-heavy keys at (512, 512)
                and (37, 128) with float32 payload bits, the ordering unit at
-               (512, 512), the chain select on 1-2 planes at W = 1, 28,
-               152, 256, 400, 1024, 1025, 4096 and 16,000 on the chain's
+               (512, 512) and at W = 32 to 1,024 (in registers, one warp or
+               two a row) and 2,048 and 16,384 (shared memory) on random
+               and tie-heavy words, the chain select on 1-2 planes at W =
+               1, 28, 152, 256, 400, 1024, 1025, 4096 and 16,000 on the chain's
                penalties and on keys that tie, wrap past INT32_MAX or hit
                INT32_MIN, and R = 0, the whole chain on 1-2 planes at W = 4, 31,
                152, 400, 4096 and 16,000; the popcount window order's
@@ -36,9 +41,12 @@ those paths against its plain PyTorch version:
                <= starts rows and a zero-padded tail, and R = 0;
  4. no-NoC   - the paper's Tab. I path: the trained LeNet's weight stream
                under O0 and O1 (stable, pattern), float32 and fixed8, BT
-               measured through the BT-counter kernel: one launch for each
-               of the 6 measured streams, and in one measure's profiler
-               window no aten::sum beyond the expected BT's own;
+               and Eq. 3's sums measured through the BT counter's measure
+               entry point: one bt_measure launch for each of the 6
+               measured streams, none of bt_count or popcount; totals, per-
+               flit figures and expected BT equal to the plain path's on
+               the CPU; in one measure's profiler window one launch, no
+               aten::sum and one host read;
  5. main     - ``run_sweep`` on the trained LeNet with one glyph image at
                full width (every packet of the inference, streamed) over
                4x4_mc2, 8x8_mc4, 8x8_mc8 x float32/fixed8 x stable/pattern x
@@ -52,9 +60,10 @@ those paths against its plain PyTorch version:
                ``aten::argsort`` / ``aten::sort`` in that packetize's
                window, nor in one chain preamble's;
  8. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
-               and on LeNet conv2's operands, and ``chain_select`` at
-               (12,800, 152) on two planes, each result == the plain
-               version's;
+               and on LeNet conv2's operands, ``chain_select`` at (12,800,
+               152) on two planes, ``ops.popcount`` on conv2's operands and
+               the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
+               the weight stream, each result == the plain version's;
  9. launches - every kernel launched at least once by the path that runs it
                (counts reset just before each of phases 4-6 and 8, read
                after); each CUDA ``descending_perm`` call of phases 4-5
@@ -72,10 +81,11 @@ those paths against its plain PyTorch version:
                full-width batch after 4,096 cycles), in microseconds per
                simulated cycle; the window order at conv2's (1600, 150)
                float32 operands (stable and pattern), the chain
-               preamble at conv2 under O3a (2 x 1,600 x 152), and the BT
-               counter at the no-NoC shape (total alone, with the host's
-               time per measure) and at (2^20, 8) (counts and total, and
-               the total alone).
+               preamble at conv2 under O3a (2 x 1,600 x 152), the BT
+               counter at the no-NoC shape (total alone) and at (2^20, 8)
+               (counts and total, and the total alone), its measure sums
+               at both (with the host's time per measure), and the
+               ordering unit at (512, 512) and conv2's (1600, 256).
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as its last line. Any failed
@@ -315,7 +325,7 @@ def main() -> None:
               f"{torch.version.cuda} | {kind}", flush=True)
 
     import torch.nn.functional as F
-    from repro_torch.core import flits, ordering, wire
+    from repro_torch.core import bt as bt_mod, flits, ordering, wire
     from repro_torch.core.bits import words32
     from repro_torch.data import glyph_batch
     from repro_torch.kernels import (bitonic_sort, bt_count, chain_greedy,
@@ -369,8 +379,23 @@ def main() -> None:
                     and torch.equal(tot_alone, want_t)):
                 fail(f"BT-counter kernel != plain BT counter at ({f_}, "
                      f"{l_}), base offset {off} words")
-        print(f"  BT counter == plain (counts, total, both) on "
-              f"{len(bt_cases)} streams", flush=True)
+            if not torch.equal(bt_count.bt_measure(words),
+                               ref.bt_measure_ref(words)):
+                fail(f"BT-measure kernel != plain sums at ({f_}, {l_}), "
+                     f"base offset {off} words")
+        # The measure sums where S2 = sum(x y) reaches 2^32 (all-ones words:
+        # 1,024 a pair over 2^22 pairs), twice, as the workspace re-arms.
+        ones = torch.full(((1 << 17) + 1, 32), -1, dtype=torch.int32,
+                          device="cuda")
+        want_m = ref.bt_measure_ref(ones)
+        if int(want_m[2]) != 1 << 32:
+            fail(f"plain measure sums of the all-ones stream: {want_m}")
+        for _ in range(2):
+            if not torch.equal(bt_count.bt_measure(ones), want_m):
+                fail("BT-measure kernel != plain sums where S2 = 2^32")
+        print(f"  BT counter == plain (counts, total, both) and measure sums "
+              f"== plain on {len(bt_cases)} streams; measure sums == plain "
+              f"at S2 = 2^32", flush=True)
         for mesh in ("4x4_mc2", "8x8_mc4", "16x16_mc16"):
             cfg = mesh_by_name(mesh)
             key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
@@ -415,12 +440,42 @@ def main() -> None:
             if not all(same_bits(g.cpu(), w) for g, w in zip(got, want)):
                 fail(f"window-sort kernel != plain network at "
                      f"{tuple(keys.shape)} with {len(pays)} payloads")
-        # Ordering unit on uint32 words.
+        # Ordering unit on uint32 words; then at every width of the
+        # register path (one warp a row below W = 256, two from 256; 37
+        # and 2,200 rows) and of the shared-memory path, on random words,
+        # on tie-heavy words (popcounts 0, 4, 6, 32 only) and on rows of
+        # one popcount.
         v = random_words(rng, (512, 512)).view(torch.uint32)
         got, want = ops.order_unit(v), ops.order_unit(v.cpu())
         torch.cuda.synchronize()
         if not all(same_bits(g.cpu(), w) for g, w in zip(got, want)):
             fail("ordering-unit kernel != plain version at (512, 512)")
+        pool = torch.from_numpy(np.array(
+            [0x0F, 0xF0, 0xF000, 0x3F, 0xFC0, 0, 0xFFFFFFFF, 0xF0000000],
+            np.uint32).view(np.int32))
+        one_pc = torch.from_numpy(np.array(
+            [0x0F, 0xF0, 0xF00, 0xF000, 0xF0000, 0x80000007],
+            np.uint32).view(np.int32))
+        ou_cases = 0
+        for w_ in (32, 64, 128, 256, 512, 1024, 2048, 16384):
+            for r_ in ((2,) if w_ > 2048 else (8,) if w_ > 1024
+                       else (37, 2200)):
+                for kind in ("random", "ties", "one popcount"):
+                    if kind == "random":
+                        x = random_words(rng, (r_, w_))
+                    else:
+                        src = pool if kind == "ties" else one_pc
+                        x = src[torch.from_numpy(rng.integers(
+                            0, len(src), (r_, w_)))].cuda()
+                    got = order_unit.order_unit_words(x)
+                    want = ref.order_unit_ref(x)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, v) for g, v in zip(got, want)):
+                        fail(f"ordering-unit kernel != plain version at "
+                             f"({r_}, {w_}), {kind} words")
+                    ou_cases += 1
+        print(f"  ordering unit == plain on {ou_cases} cases (W = 32 to "
+              f"16,384)", flush=True)
         # Chain select: 1 and 2 planes over the chain's penalty set, and on
         # penalties whose keys tie (-idx + {0, 1, 2}), wrap past INT32_MAX,
         # or hit INT32_MIN (one lane a row); a warp a row up to W = 1,024,
@@ -559,67 +614,79 @@ def main() -> None:
                              "ordered_bt_per_flit": opt["bt_per_flit"],
                              "baseline_total_bt": base["total_bt"],
                              "ordered_total_bt": opt["total_bt"],
+                             "baseline_expected_bt": base["expected_bt"],
+                             "ordered_expected_bt": opt["expected_bt"],
                              "reduction_pct": red})
                 print(f"  {fmt:8s} {tb:8s} BT/flit {base['bt_per_flit']:.3f}"
                       f" -> {opt['bt_per_flit']:.3f}  reduction {red:.2f}%",
                       flush=True)
-        # The same BT totals and per-flit ratios from the plain path on the
-        # CPU, exactly (measure divides the total on the host either way).
+        # The same BT totals, per-flit ratios and expected BT from the plain
+        # path on the CPU, exactly (measure forms both figures on the host
+        # from the same integers either way).
         cpu_stream = stream.cpu()
         for row in tab1:
             fmt = row["case"].split("-")[0]
             vals = (cpu_stream if fmt == "float32"
                     else quantize_fixed8(cpu_stream).values)
-            opt = wire.measure(wire.by_name("O1", tiebreak=row["tiebreak"])
-                               .apply_single(vals, 8))
-            if opt["total_bt"] != row["ordered_total_bt"]:
-                fail("no-NoC BT on the card != plain path on the CPU")
-            if opt["bt_per_flit"] != row["ordered_bt_per_flit"]:
-                fail("no-NoC BT per flit on the card != the CPU's")
+            for side, m in (("baseline", wire.measure(flits.pack(vals, 8))),
+                            ("ordered", wire.measure(
+                                wire.by_name("O1", tiebreak=row["tiebreak"])
+                                .apply_single(vals, 8)))):
+                for key in ("total_bt", "bt_per_flit", "expected_bt"):
+                    if m[key] != row[f"{side}_{key}"]:
+                        fail(f"no-NoC {side} {key} on the card "
+                             f"({row[f'{side}_{key}']}) != the plain path's "
+                             f"on the CPU ({m[key]}), {row['case']} "
+                             f"{row['tiebreak']}")
         report["tab1"] = tab1
     nonoc_launches = {k.name: k.launches for k in ops.KERNELS}
 
     with Phase("no-NoC measure window"):
-        # Six streams were measured on the card above, each one BT-counter
-        # launch. One measure in a profiler window: one launch, and no sum
-        # on the BT side - the aten::sum it holds must be the expected BT's
-        # own float sum (Eq. 3; K2's path), which a window of
-        # expected_bt_stream alone holds too.
+        # Six streams were measured on the card above, each one launch of
+        # the BT counter's measure entry point, which takes the total and
+        # Eq. 3's sums together: no bt_count and no popcount launch. One
+        # measure in a profiler window: one launch, no aten::sum, and one
+        # read to the host (aten::to, aten::item and
+        # aten::_local_scalar_dense summed; one device-to-host copy).
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        from repro_torch.core import bt as bt_mod
-        if nonoc_launches["bt_count"] != 6:
-            fail(f"6 streams measured on the card but "
-                 f"{nonoc_launches['bt_count']} BT-counter launches")
+        want = {"bt_measure": 6, "bt_count": 0, "popcount": 0}
+        got = {k: nonoc_launches[k] for k in want}
+        if got != want:
+            fail(f"6 streams measured on the card: launches {got}, "
+                 f"expected {want}")
         s8 = flits.pack(stream, 8)
         wire.measure(s8)
         torch.cuda.synchronize()
-
-        def ops_in(fn):
-            before = bt_count.KERNEL.launches
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            counts = {e.key: e.count for e in prof.key_averages()}
-            return counts, bt_count.KERNEL.launches - before
-
-        m_ops, m_k3 = ops_in(lambda: wire.measure(s8))
-        e_ops, _ = ops_in(lambda: float(bt_mod.expected_bt_stream(s8)))
-        m_sums, e_sums = m_ops.get("aten::sum", 0), e_ops.get("aten::sum", 0)
-        if m_k3 != 1:
-            fail(f"one measure made {m_k3} BT-counter launches")
-        if m_sums != e_sums:
-            fail(f"one measure holds {m_sums} aten::sum, the expected BT "
-                 f"alone {e_sums}: a sum is left on the BT side")
+        before = {k.name: k.launches for k in ops.KERNELS}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wire.measure(s8)
+            torch.cuda.synchronize()
+        m_launches = {k.name: k.launches - before[k.name]
+                      for k in ops.KERNELS if k.launches != before[k.name]}
+        events = prof.key_averages()
+        m_ops = {e.key: e.count for e in events}
+        m_sums = m_ops.get("aten::sum", 0)
         syncs = {k: m_ops.get(k, 0) for k in ("aten::item", "aten::to",
                                               "aten::_local_scalar_dense")}
-        print(f"  6 BT-counter launches for 6 measured streams; one measure:"
-              f" 1 launch, aten::sum {m_sums} (expected BT alone {e_sums}), "
-              f"host reads {syncs}", flush=True)
-        report["measure_window"] = {"bt_count_launches": m_k3,
-                                    "aten_sum": m_sums,
-                                    "aten_sum_expected_bt": e_sums,
-                                    "host_reads": syncs}
+        d2h = sum(e.count for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and "DtoH" in e.key)
+        if m_launches != {"bt_measure": 1}:
+            fail(f"one measure launched {m_launches}, expected one "
+                 "bt_measure launch and nothing else")
+        if m_sums:
+            fail(f"one measure holds {m_sums} aten::sum")
+        if sum(syncs.values()) != 1:
+            fail(f"one measure holds {syncs}: one host read expected")
+        print(f"  launches over the 6 measured streams {got}; one measure: "
+              f"{m_launches}, aten::sum {m_sums}, host reads {syncs}, "
+              f"device-to-host copies {d2h}", flush=True)
+        report["measure_window"] = {"nonoc_launches": got,
+                                    "launches": m_launches,
+                                    "aten_sum": m_sums, "host_reads": syncs,
+                                    "device_to_host_copies": d2h}
 
     path = "noc"
     ops.reset_launch_counts()
@@ -851,7 +918,7 @@ def main() -> None:
         report["idle_packetize"] = pack
 
     ops.reset_launch_counts()
-    with Phase("entry points (ordering unit, chain select)"):
+    with Phase("entry points (ordering unit, chain select, popcount, BT)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
         # drives them (2^18 values in windows of 512), and on the trained
         # LeNet's conv2 operands (1600 x 150) zero-padded to W = 256.
@@ -876,6 +943,20 @@ def main() -> None:
         calls.append(("chain_select (12800, 152) two planes",
                       ops.chain_select(xs6, pen6),
                       lambda: ref.chain_select_ref(xs6, pen6, 152)))
+        # The one-to-one popcount on conv2's operands, and the BT recorder's
+        # total and per-boundary counts on the weight stream in 8-value
+        # flits: entry points the no-NoC path no longer takes (measure
+        # takes bt_measure).
+        for name, x in [("popcount conv2 inputs", layers[1].inputs),
+                        ("popcount conv2 weights", layers[1].weights)]:
+            calls.append((name, (ops.popcount(x),),
+                          lambda x=x: (ref.popcount_ref(x),)))
+        s8 = flits.pack(stream, 8)
+        calls.append(("bt_stream (7778, 8)", (bt_mod.bt_stream(s8),),
+                      lambda: (ref.bt_total_ref(s8.words),)))
+        calls.append(("bt_boundaries (7778, 8)",
+                      (ops.bt_boundaries(s8.words),),
+                      lambda: (ref.bt_boundaries_ref(s8.words),)))
         unit_launches = {k.name: k.launches for k in ops.KERNELS}
         for name, got, plain in calls:
             want = plain()
@@ -914,7 +995,8 @@ def main() -> None:
                      "(one a call expected)")
         print(f"  descending_perm calls {perm_calls}: one window-order "
               "launch each", flush=True)
-        for name in ("bitonic_sort", "order_unit", "chain_select"):
+        for name in ("bitonic_sort", "order_unit", "chain_select",
+                     "popcount", "bt_count"):
             if unit_launches[name] <= 0:
                 fail(f"the entry points did not launch {name}")
         report["launches"] = paths
@@ -982,11 +1064,10 @@ def main() -> None:
             plain_ms=pms, bound_ms=bound, bound_by="bytes", library_ms=None,
             shape=list(x.shape)))
         # K3 at the no-NoC shape: the float32 weight stream in 8-lane flits,
-        # its total alone (what measure takes; one launch a measured
-        # stream), with the host's wall time per measure beside it; then
-        # at the bandwidth shape (2^20, 8), the counts and the total in one
-        # launch, and the total alone. Bytes: the words read once, the
-        # counts written once; operations: XOR, popcount, add a word.
+        # its total alone (bt_stream's); then at the bandwidth shape (2^20,
+        # 8), the counts and the total in one launch, and the total alone.
+        # Bytes: the words read once, the counts written once; operations:
+        # XOR, popcount, add a word.
         fw = words32(flits.pack(stream, 8).words).contiguous()
         s8 = flits.pack(stream, 8)
         wire.measure(s8)
@@ -1024,7 +1105,32 @@ def main() -> None:
                 bound_ms=bound, bound_by=by, library_ms=None,
                 library="none: no single call (XOR + popcount)",
                 shape=[f, lanes, "counts+total" if counts else "total"]))
-        kernels[-3]["measure_ms"] = measure_ms
+        # The measure sums (what one measure launches) at the same two
+        # shapes, with the host's wall time per measure beside the no-NoC
+        # one. Bytes: the words read once, three int64 written; operations
+        # a pair: XOR and three popcounts, two adds, a multiply-add.
+        for label, xw in (("bt_measure", fw), ("bt_measure/bandwidth", fb)):
+            f, lanes = xw.shape
+
+            def km(xw=xw):
+                return bt_count.bt_measure(xw)
+
+            def pm(xw=xw):
+                return ref.bt_measure_ref(xw)
+
+            bound, by = bound_of(4 * f * lanes + 24, 8 * (f - 1) * lanes)
+            kernels.append(dict(
+                name=label, route="cuda",
+                source="src/repro_torch/kernels/csrc/bt_count.cu",
+                replaces="src/repro/kernels/popcount.py:34",
+                launches=launches["bt_measure"],
+                max_abs_err=max_err([(km(), pm())]),
+                ms=cuda_ms(km, 50), launch_ms=launch_ms(km, 50),
+                device_ms=device_ms(km, 50), plain_ms=cuda_ms(pm, 50),
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library="none: no single call (XOR + popcount + Eq. 3)",
+                shape=[f, lanes]))
+        kernels[-2]["measure_ms"] = measure_ms
         print(f"  wire.measure on the (7778, 8) weight stream: "
               f"{measure_ms:.4f} ms host wall a call", flush=True)
         # K1 at the main-path shape: the full-width 8x8_mc4 batch (12
@@ -1162,27 +1268,33 @@ def main() -> None:
             plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=lms,
             library="torch.sort(descending=True) + one gather",
             shape=[r_, w_, 1]))
-        # K5 at the entry point's shape: (512, 512) words; per
-        # compare-exchange one compare and two selects per array (key,
-        # value, index), plus one popcount a lane; 4 bytes in, 8 out.
-        vals = random_words(rng, (r_, w_))
-        got = order_unit.order_unit_words(vals)
-        want = ref.order_unit_ref(vals)
-        err = max_err(zip(got, want))
-        ms = cuda_ms(lambda: order_unit.order_unit_words(vals), 50)
-        kl = launch_ms(lambda: order_unit.order_unit_words(vals), 50)
-        dk = device_ms(lambda: order_unit.order_unit_words(vals), 50)
-        pms = cuda_ms(lambda: ref.order_unit_ref(vals), 5)
-        bound, by = bound_of(12 * r_ * w_,
-                             network_ces(r_, w_) * 7 + r_ * w_)
-        kernels.append(dict(
-            name="order_unit", route="cuda",
-            source="src/repro_torch/kernels/csrc/order_unit.cu",
-            replaces="src/repro/kernels/order_unit.py:51",
-            launches=launches["order_unit"], max_abs_err=err, ms=ms,
-            launch_ms=kl, device_ms=dk,
-            plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
-            library="none: torch has no popcount op", shape=[r_, w_]))
+        # K5 at the entry points' shapes: (512, 512) words, and conv2's
+        # operands zero-padded to (1600, 256); per compare-exchange one
+        # compare and two selects per array (key, value, index), plus one
+        # popcount a lane; 4 bytes in, 8 out.
+        for label, vals in (("order_unit", random_words(rng, (512, 512))),
+                            ("order_unit/conv2", words32(F.pad(
+                                layers[1].inputs, (0, 106))).contiguous())):
+            r_, w_ = vals.shape
+
+            def k5(vals=vals):
+                return order_unit.order_unit_words(vals)
+
+            def p5(vals=vals):
+                return ref.order_unit_ref(vals)
+
+            bound, by = bound_of(12 * r_ * w_,
+                                 network_ces(r_, w_) * 7 + r_ * w_)
+            kernels.append(dict(
+                name=label, route="cuda",
+                source="src/repro_torch/kernels/csrc/order_unit.cu",
+                replaces="src/repro/kernels/order_unit.py:51",
+                launches=launches["order_unit"],
+                max_abs_err=max_err(zip(k5(), p5())), ms=cuda_ms(k5, 50),
+                launch_ms=launch_ms(k5, 50), device_ms=device_ms(k5, 50),
+                plain_ms=cuda_ms(p5, 5), bound_ms=bound, bound_by=by,
+                library_ms=None, library="none: torch has no popcount op",
+                shape=[r_, w_]))
         # K6 at conv2-under-O3a's step shape (its entry-point phase call):
         # 1600 windows x 8 starts of 152 lanes, two planes. Per lane: two popcounts, an
         # add and the key (3 ops); per compare-exchange on the padded row:

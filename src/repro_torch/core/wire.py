@@ -231,13 +231,14 @@ def by_name(name: str, window: Optional[int] = None, **kw) -> WireTransform:
 
 def measure(stream: FlitStream) -> dict:
     """BT metrics of one flit stream (the Fig. 8 recorder). The stream's BT
-    is counted once (one launch and one read on the card); the per-flit
-    figure divides that total as ``bt_per_flit`` does, on the host."""
-    total = bt_mod.bt_stream(stream).cpu()
+    and Eq. 3's sums are taken together (one launch and one read on the
+    card); the per-flit figure divides the total as ``bt_per_flit`` does,
+    and the expected BT is formed from the sums, both on the host."""
+    total, s1, s2 = bt_mod.stream_sums(stream)
     return {
         "total_bt": float(total),
-        "bt_per_flit": float(bt_mod.per_flit(total, stream.words.shape[0])),
-        "expected_bt": float(bt_mod.expected_bt_stream(stream)),
+        "bt_per_flit": bt_mod.per_flit(total, stream.words.shape[0]),
+        "expected_bt": bt_mod.expected_bt(s1, s2, stream.value_bits),
         "num_flits": int(stream.words.shape[0]),
         "flit_bits": stream.flit_bits,
     }

@@ -1,5 +1,7 @@
 // The bitonic compare-exchange network shared by the window-sort (K4),
-// ordering-unit (K5) and chain-select (K6) kernels.
+// ordering-unit (K5) and chain-select (K6) kernels, in shared memory for a
+// block, and in registers for a row a warp holds (warp_bitonic, K5's rows
+// up to 1,024).
 //
 // It is the network of repro/kernels/bitonic_sort.py (_compare_exchange),
 // stage for stage: in stage (k, j), lane i pairs with lane i ^ 2^j, and the
@@ -78,6 +80,120 @@ __device__ void bitonic_network(int* key, int* p0, int* p1, int w, int rows,
                 }
             }
             __syncthreads();
+        }
+    }
+}
+
+// The same network over one row of W = 32 E G elements held in registers
+// by G = 2^LG warps (W <= 1,024 at E <= 32): element i = (part 32 + lane) E
+// + r is key[r] of lane `lane` of the row's warp `part` (E a power of two,
+// so every register index is a compile-time constant), and pay[p][r] its NP
+// payloads (NP = 0 to 2; with NP = 0 the one-row array is a placeholder;
+// order_unit.cu takes NP = 0, tools/k5_probe.py builds NP = 1 and 2, which
+// tests/test_torch_order_unit_warp.py holds to the plain version).
+// Substage (k, j) pairs element i with i ^ 2^j:
+//  * 2^j < E: two registers of one thread;
+//  * E <= 2^j < 32 E: lane l with lane l ^ (2^j / E), same register, the
+//    words exchanged by __shfl_xor_sync;
+//  * 2^j >= 32 E (G > 1): warp `part` with warp part ^ (2^j / 32 E), same
+//    lane and register, the words exchanged through the row's `xbuf` (W
+//    words of shared memory) between two waits at the row's named barrier
+//    `bar` (1 to 15, for its 32 G threads); no payloads then.
+// Across threads both partners reach the same decision: the pair's
+// direction from bit k+1 of i, the lower element taking the other only on a
+// strict `before`. With G = 1 there is no barrier: the warp is the row.
+//
+// before(a, b): key word a must precede key word b in the output.
+// Before::kFlip: a mask that reverses `before` - before(a ^ kFlip, b ^
+// kFlip) == before(b, a) - so a comparison whose direction is known only
+// at run time (it depends on the lane) is one `before` on words XORed with
+// 0 or kFlip, not two comparisons and a select.
+template <int E, int NP, int LG, class Before>
+__device__ __forceinline__ void warp_bitonic(
+    unsigned (&key)[E], unsigned (&pay)[NP > 0 ? NP : 1][E], int lane,
+    Before before, int part = 0, unsigned* xbuf = nullptr, int bar = 0) {
+    constexpr unsigned kFullMask = 0xffffffffu;
+    constexpr int LE = E == 1 ? 0 : E == 2 ? 1 : E == 4 ? 2 : E == 8 ? 3
+                     : E == 16 ? 4 : 5;               // log2(E)
+    constexpr int LT = LE + 5;                        // log2(32 E)
+    constexpr int LW = LT + LG;                       // log2(W)
+    static_assert((1 << LE) == E, "E must be a power of two <= 32");
+    static_assert(LG == 0 || NP == 0, "payloads stay inside one warp");
+    // Bit b >= LE of element i: the lane's below LT, the part's above.
+    auto high_bit = [&](int b) {
+        return b < LT ? (lane >> (b - LE)) & 1 : (part >> (b - LT)) & 1;
+    };
+#pragma unroll
+    for (int k = 0; k < LW; ++k) {
+#pragma unroll
+        for (int j = k; j >= 0; --j) {
+            if (j < LE) {           // inside the thread: r against r | 2^j
+                // In the output order (fwd) the pair swaps on before(b, a).
+                const unsigned flip =
+                    k + 1 < LE || high_bit(k + 1) == 0 ? Before::kFlip : 0u;
+#pragma unroll
+                for (int r = 0; r < E; ++r) {
+                    if (r & (1 << j)) continue;
+                    const int q = r | (1 << j);
+                    const unsigned a = key[r], b = key[q];
+                    bool swap;
+                    if (k + 1 < LE) {
+                        swap = ((r >> (k + 1)) & 1) == 0 ? before(b, a)
+                                                         : before(a, b);
+                    } else {
+                        swap = before(a ^ flip, b ^ flip);
+                    }
+                    key[r] = swap ? b : a;
+                    key[q] = swap ? a : b;
+#pragma unroll
+                    for (int p = 0; p < NP; ++p) {
+                        const unsigned u = pay[p][r], v = pay[p][q];
+                        pay[p][r] = swap ? v : u;
+                        pay[p][q] = swap ? u : v;
+                    }
+                }
+                continue;
+            }
+            // Across threads. lo holds a, its partner b: lo takes b on (fwd
+            // ? before(b, a) : before(a, b)); hi takes a on the same
+            // condition, so each takes its partner's word on before(other,
+            // mine) when fwd == lo, else on before(mine, other).
+            const bool lo = high_bit(j) == 0;
+            const bool fwd = k + 1 >= LW || high_bit(k + 1) == 0;
+            const unsigned flip = fwd == lo ? Before::kFlip : 0u;
+            if (j < LT) {           // across lanes: l against l ^ 2^(j-LE)
+                const int m = 1 << (j - LE);
+#pragma unroll
+                for (int r = 0; r < E; ++r) {
+                    const unsigned mine = key[r];
+                    const unsigned other = __shfl_xor_sync(kFullMask, mine, m);
+                    const bool take = before(mine ^ flip, other ^ flip);
+                    key[r] = take ? other : mine;
+#pragma unroll
+                    for (int p = 0; p < NP; ++p) {
+                        const unsigned po =
+                            __shfl_xor_sync(kFullMask, pay[p][r], m);
+                        pay[p][r] = take ? po : pay[p][r];
+                    }
+                }
+            } else {                // across warps: part ^ 2^(j-LT)
+                // A warp's E words a lane at xbuf[part 32 E + r 32 + lane]:
+                // no bank conflicts either way.
+                unsigned* own = xbuf + part * 32 * E + lane;
+                const unsigned* theirs =
+                    xbuf + (part ^ (1 << (j - LT))) * 32 * E + lane;
+#pragma unroll
+                for (int r = 0; r < E; ++r) own[r * 32] = key[r];
+                asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(32 << LG)
+                             : "memory");
+#pragma unroll
+                for (int r = 0; r < E; ++r) {
+                    const unsigned mine = key[r], other = theirs[r * 32];
+                    key[r] = before(mine ^ flip, other ^ flip) ? other : mine;
+                }
+                asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(32 << LG)
+                             : "memory");
+            }
         }
     }
 }

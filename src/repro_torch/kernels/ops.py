@@ -17,12 +17,13 @@ from . import (bitonic_sort as _bitonic, bt_count, chain_greedy as _greedy,
                router_step as _router)
 from ._build import build_all as _build_all
 
-__all__ = ["popcount", "bt_boundaries", "bt_total", "router_step",
+__all__ = ["popcount", "bt_boundaries", "bt_total", "bt_measure",
+           "router_step",
            "sort_windows_desc", "order_unit", "chain_select", "chain_greedy",
            "descending_perm_rows", "chain_inputs", "KERNELS",
            "reset_launch_counts", "build_all"]
 
-KERNELS = (_router.KERNEL, _popcount.KERNEL, bt_count.KERNEL,
+KERNELS = (_router.KERNEL, _popcount.KERNEL, *bt_count.KERNELS,
            _bitonic.KERNEL, _order_unit.KERNEL, _select.KERNEL,
            _greedy.KERNEL, *_porder.KERNELS)
 
@@ -97,6 +98,16 @@ def bt_total(words: torch.Tensor) -> torch.Tensor:
     if words.device.type != "cuda":
         return ref.bt_total_ref(words)
     return bt_count.bt_total(words32(words).contiguous())
+
+
+def bt_measure(words: torch.Tensor) -> torch.Tensor:
+    """``[total, S1, S2]`` (int64, shape (3,)) of an (F, L) flit stream: the
+    BT total as an int32 sum wraps, and the sums of x + y and x y over every
+    pair of words sharing a lane on consecutive flits, x and y their
+    popcounts (one launch on the card)."""
+    if words.device.type != "cuda":
+        return ref.bt_measure_ref(words)
+    return bt_count.bt_measure(words32(words).contiguous())
 
 
 def router_step(state, wire, mc_nodes, cycles: int, mesh_key,

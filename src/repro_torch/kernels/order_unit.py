@@ -2,10 +2,16 @@
 the descending bitonic sort of each row in one pass (the paper's Fig. 14).
 
 Replaces ``repro/kernels/order_unit.py`` ``order_unit_pallas``. Each key is
-one ``__popc`` taken as the row is loaded into shared memory (the TPU ran a
-SWAR popcount); the network is the window sort's (``csrc/bitonic.cuh``)
-with (value, lane index) as payloads, so ordered values and the
-window-local permutation equal the reference's bit for bit. The keys never
+one ``__popc`` taken as the row is loaded (the TPU ran a SWAR popcount);
+the network is the reference's, substage for substage, with (value, lane
+index) riding the swaps, so ordered values and the window-local
+permutation equal the reference's bit for bit, ties included. Rows of 32
+to 1,024 words are sorted in registers (``warp_bitonic`` in
+``csrc/bitonic.cuh``), a warp a row below W = 256 and two from 256: the
+(popcount, index) pair of an element is one word, compare-exchanged inside
+a thread or by shuffles, with no block barrier (two warps meet at a named
+barrier of their own), and the values are gathered by the final indices.
+Other widths run in shared memory, one barrier a substage. The keys never
 reach device memory: 4 bytes read and 8 written a lane.
 """
 from __future__ import annotations

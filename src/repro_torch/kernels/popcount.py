@@ -6,8 +6,9 @@ unit has no popcount; Hopper has ``__popc``, so the kernel is one load, one
 instruction and one store per word. Bound on the card: memory (8 bytes per
 word against one integer op), so the design is 16-byte vector loads and
 stores, no padding. ``core/bits.popcount`` on CUDA tensors goes through
-it (the expected-BT and chain-cost counts); the orderings' counts go
-through ``popcount_order``, which never writes them out.
+it. No path of the port's main run needs the counts in device memory: the
+orderings' counts go through ``popcount_order`` and the expected BT's
+through ``bt_count.bt_measure``, which never write them out.
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ import torch
 from ..core.bits import popcount32, widen_unsigned, words32
 
 __all__ = ["popcount_ref", "bt_boundaries_ref", "bt_total_ref",
-           "router_step_ref",
+           "bt_measure_ref", "router_step_ref",
            "sort_windows_ref", "order_unit_ref", "chain_select_ref",
            "chain_greedy_ref", "descending_perm_rows_ref",
            "chain_inputs_ref"]
@@ -59,6 +59,16 @@ def bt_total_ref(words: torch.Tensor) -> torch.Tensor:
     """Total bit transitions over an (F, L) word stream -> int32 scalar
     (an int32 sum of the boundary counts)."""
     return bt_boundaries_ref(words).sum(dtype=torch.int32)
+
+
+def bt_measure_ref(words: torch.Tensor) -> torch.Tensor:
+    """``[total, S1, S2]`` (int64) of an (F, L) word stream: the int32 BT
+    total, and over the word pairs (w[i, j], w[i+1, j]) with popcounts x
+    and y, S1 = sum(x + y) and S2 = sum(x y) (Eq. 3's sums), in int64."""
+    c = popcount32(words32(words)).to(torch.int64)
+    x, y = c[:-1], c[1:]
+    return torch.stack([bt_total_ref(words).to(torch.int64),
+                        (x + y).sum(), (x * y).sum()])
 
 
 def router_step_ref(state, wire, mc_nodes: torch.Tensor, cycles: int,

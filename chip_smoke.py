@@ -23,8 +23,11 @@ those paths against its plain PyTorch version:
                over 512 cycles of a synthetic 6-lane batch on 4x4, 8x8 and
                16x16 meshes, one for each shared-memory layout (all 13 state
                leaves after every 128-cycle chunk; the FIFO's phantom router
-               row excluded), the window sort on tie-heavy keys at (512, 512)
-               and (37, 128) with float32 payload bits, the ordering unit at
+               row excluded), the window sort at (512, 512) and on rows
+               that leave the last block part-filled at W = 128 to 2,048
+               with 0-2 payloads on tie-heavy and full-range int32 keys
+               (INT32_MIN, INT32_MAX), and at (37, 128) with uint32 and
+               float32 payloads through ``ops``, the ordering unit at
                (512, 512) and at W = 32 to 1,024 (in registers, one warp or
                two a row) and 2,048 and 16,384 (shared memory) on random
                and tie-heavy words, the chain select on 1-2 planes at W =
@@ -59,20 +62,31 @@ those paths against its plain PyTorch version:
                O0/O1/O2 packetize, each from one torch.profiler window; no
                ``aten::argsort`` / ``aten::sort`` in that packetize's
                window, nor in one chain preamble's;
- 8. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+ 8. DarkNet  - the trained DarkNet (forward held to the CPU's) on one
+               glyph image (64x64x3): Fig. 13's cell (4x4_mc2, float32 and
+               fixed8, pattern, O0/O1/O2, 40 packets a layer) through the
+               kernels on the card and the plain versions on the CPU, equal
+               rows; then every packet (99,690) streamed at 16x16_mc16,
+               fixed8, pattern, O0/O1/O2: every lane drained, the
+               reference's flits (1,309,994) and cycles (181,474, printed
+               beside each lane's), totals below 2^31, packetize and
+               simulate seconds, lane-cycles a second, microseconds a
+               simulated cycle, K1 and window-order launches, and the
+               device idle share of its packetize and of its drain;
+ 9. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
                the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
                the weight stream, each result == the plain version's;
- 9. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-6 and 8, read
+10. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6, 8 and 9, read
                after); each CUDA ``descending_perm`` call of phases 4-5
                exactly one launch of the window-order kernel;
-10. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+11. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
                the plain versions on the CPU: equal rows;
-11. timing   - each kernel at its path's shapes beside its plain version,
+12. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
@@ -84,7 +98,10 @@ those paths against its plain PyTorch version:
                preamble at conv2 under O3a (2 x 1,600 x 152), the BT
                counter at the no-NoC shape (total alone) and at (2^20, 8)
                (counts and total, and the total alone), its measure sums
-               at both (with the host's time per measure), and the
+               at both (with the host's time per measure), the window sort
+               at (512, 512) with 0-2 payloads and on full-range keys and
+               at W = 128 to 2,048 (the host's time a call through its
+               wrapper and as a bare ctypes launch beside it), and the
                ordering unit at (512, 512) and conv2's (1600, 256).
 
 Prints one JSON line describing the kernels, then the card's name and power
@@ -107,13 +124,25 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-CKPT = os.path.join(REPO, "experiments", "weights", "lenet", "step_000000400")
 MESHES = ("4x4_mc2", "8x8_mc4", "8x8_mc8")
 AXES = dict(meshes=MESHES, transforms=("O0", "O1", "O2"),
             tiebreaks=("stable", "pattern"), precisions=("float32", "fixed8"),
             models=("lenet",))
 AXES_O3 = dict(AXES, transforms=("O0", "O3", "O3a"))
 PINNED = dict(max_packets_per_layer=8, chunk=128)
+# DarkNet: Fig. 13's cell (benchmarks/fig13.py: 4x4_mc2, both precisions,
+# pattern, O0/O1/O2, 40 packets a layer), and the full streamed traffic at
+# 16x16_mc16 (benchmarks/darknet_full.py's operand phase on the edge
+# placement and round-robin dealing), whose cycles and flits depend only on
+# packet lengths and the mesh: experiments/darknet_full.json records them.
+FIG13 = dict(meshes=("4x4_mc2",), transforms=("O0", "O1", "O2"),
+             tiebreaks=("pattern",), precisions=("float32", "fixed8"),
+             models=("darknet",), max_packets_per_layer=40, chunk=2048)
+DARKNET_FULL = dict(meshes=("16x16_mc16",), transforms=("O0", "O1", "O2"),
+                    tiebreaks=("pattern",), precisions=("fixed8",),
+                    models=("darknet",), max_packets_per_layer=None,
+                    chunk=4096)
+DARKNET_FULL_RECORD = {"cycles": 181_474, "flits": 1_309_994}
 # The chain's selection penalties (repro_torch.kernels.min_hamming).
 PENALTIES = np.array([0, 1 << 28, 1 << 30, (1 << 30) + (1 << 28)], np.int32)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
@@ -246,6 +275,35 @@ def random_words(rng, shape):
                             .astype(np.uint32).view(np.int32)).cuda()
 
 
+# The window sort's shapes: the entry point's (512, 512), then rows that
+# leave the last block part-filled (four warps a block: four rows of one
+# warp, two of two) at W = 512, 128, 256, 1,024 (registers) and 2,048 (the
+# shared network).
+K4_SHAPES = ((512, 512), (513, 512), (2201, 128), (1031, 256), (259, 1024),
+             (37, 2048))
+
+
+def k4_cases():
+    """The window sort's checked cases: ((R, W), key kind, payloads)."""
+    return [(shape, kind, n) for shape in K4_SHAPES
+            for kind in ("ties", "full") for n in (0, 1, 2)]
+
+
+def k4_keys(rng, kind: str, r: int, w: int):
+    """(R, W) int32 keys on the card: ``ties`` in [0, 33); ``full`` the
+    whole int32 range, INT32_MIN twice and INT32_MAX in every row and a
+    run of values in [-2, 2)."""
+    import torch
+    if kind == "ties":
+        k = rng.integers(0, 33, (r, w))
+    else:
+        k = rng.integers(-2**31, 2**31, (r, w), dtype=np.int64)
+        cols = rng.permutation(w)
+        k[:, cols[:3]] = [-2**31, 2**31 - 1, -2**31]
+        k[:, cols[3:9]] = rng.integers(-2, 2, (r, 6))
+    return torch.from_numpy(k.astype(np.int32)).cuda()
+
+
 def select_penalty(kind: str, rng, xs, k2: int):
     """(R, W) int32 chain-select penalties on the card: the chain's four
     classes; tie-heavy (-idx + {0, 1, 2}: keys dvec * k2 + small); keys
@@ -332,7 +390,7 @@ def main() -> None:
                                      chain_select, min_hamming, ops,
                                      order_unit, popcount, popcount_order,
                                      ref, router_step)
-    from repro_torch.models import LeNet, load_checkpoint
+    from repro_torch.models import DarkNetLike, LeNet, trained_model
     from repro_torch.noc import SweepGrid, run_sweep, sim
     from repro_torch.noc.topology import mesh_by_name
     from repro_torch.quant import quantize_fixed8
@@ -421,25 +479,34 @@ def main() -> None:
                   f"6 lanes, {int(a.ejected.sum())} flits ejected (shared "
                   f"memory: {', '.join(lay.in_shared) or 'routing state'}; "
                   f"{lay.bytes} bytes, {lay.threads} threads)", flush=True)
-        # Window sort: tie-heavy keys (popcounts in [0, 33), as
-        # benchmarks/ordering_throughput.py makes them); the (37, 128) case
-        # carries a float32 payload whose words have bit 31 set.
-        neg = -np.abs(rng.standard_normal((37, 128))).astype(np.float32) - 1
-        cases = [
-            (torch.from_numpy(rng.integers(0, 33, (512, 512))
-                              .astype(np.int32)).cuda(),
-             [random_words(rng, (512, 512)).view(torch.uint32)]),
-            (torch.from_numpy(rng.integers(0, 33, (37, 128))
-                              .astype(np.int32)).cuda(),
-             [random_words(rng, (37, 128)), torch.from_numpy(neg).cuda()]),
-        ]
-        for keys, pays in cases:
-            got = ops.sort_windows_desc(keys, *pays)
-            want = ops.sort_windows_desc(keys.cpu(), *(p.cpu() for p in pays))
+        # Window sort: every register width (one warp a row below 256, two
+        # from 256) and the shared network at 2,048, with 0, 1 and 2
+        # payloads, on tie-heavy keys (popcounts in [0, 33), as
+        # benchmarks/ordering_throughput.py makes them) and on full-range
+        # keys holding INT32_MIN and INT32_MAX, at row counts that do not
+        # fill the last block; through ops.sort_windows_desc once with a
+        # float32 payload whose words have bit 31 set.
+        for (r_, w_), kind, n_pay in k4_cases():
+            keys = k4_keys(rng, kind, r_, w_)
+            pays = [random_words(rng, (r_, w_)) for _ in range(n_pay)]
+            got = bitonic_sort.sort_windows(keys, *pays)
+            want = ref.sort_windows_ref(keys, *pays)
             torch.cuda.synchronize()
-            if not all(same_bits(g.cpu(), w) for g, w in zip(got, want)):
-                fail(f"window-sort kernel != plain network at "
-                     f"{tuple(keys.shape)} with {len(pays)} payloads")
+            if not all(torch.equal(g, v) for g, v in zip(got, want)):
+                fail(f"window-sort kernel != plain network at ({r_}, {w_}), "
+                     f"{kind} keys, {n_pay} payloads")
+        neg = -np.abs(rng.standard_normal((37, 128))).astype(np.float32) - 1
+        keys = k4_keys(rng, "ties", 37, 128)
+        pays = [random_words(rng, (37, 128)).view(torch.uint32),
+                torch.from_numpy(neg).cuda()]
+        got = ops.sort_windows_desc(keys, *pays)
+        want = ops.sort_windows_desc(keys.cpu(), *(p.cpu() for p in pays))
+        torch.cuda.synchronize()
+        if not all(same_bits(g.cpu(), w) for g, w in zip(got, want)):
+            fail("window sort through ops != plain network with uint32 and "
+                 "float32 payloads")
+        print(f"  window sort == plain on {len(k4_cases())} cases (W = 128 "
+              "to 2,048, 0-2 payloads, both key ranges)", flush=True)
         # Ordering unit on uint32 words; then at every width of the
         # register path (one warp a row below W = 256, two from 256; 37
         # and 2,200 rows) and of the shared-memory path, on random words,
@@ -598,8 +665,7 @@ def main() -> None:
     ordering.descending_perm = counted_descending_perm
     ops.reset_launch_counts()
     with Phase("no-NoC (Tab. I)"):
-        ck = load_checkpoint(CKPT, device="cuda")
-        net = LeNet(ck.params, device="cuda")
+        net, lparams, _ = trained_model("lenet", device="cuda")
         stream = net.weight_stream()
         tab1 = []
         for fmt in ("float32", "fixed8"):
@@ -696,7 +762,7 @@ def main() -> None:
         layers = net.layer_traffic(img[0])
         npk = sum(int(lt.inputs.shape[0]) for lt in layers)
         logits = net(img)
-        cpu_logits = LeNet({k: v.cpu() for k, v in ck.params.items()},
+        cpu_logits = LeNet({k: v.cpu() for k, v in lparams.items()},
                            device="cpu")(img.cpu())
         if not torch.allclose(logits.cpu(), cpu_logits, rtol=1e-5, atol=1e-6):
             fail("LeNet forward on the card disagrees with the CPU")
@@ -780,6 +846,7 @@ def main() -> None:
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.noc.sweep import _QUANTIZERS
         from repro_torch.noc.traffic import (build_traffic_streamed,
+                                             build_traffic_streamed_multi,
                                              payload_shapes)
         cfg = mesh_by_name("8x8_mc4")
         variants3 = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
@@ -917,6 +984,146 @@ def main() -> None:
               f"the sweep: {pack['packetize_s_unprofiled']} s)", flush=True)
         report["idle_packetize"] = pack
 
+    with Phase("DarkNet model (trained, 64x64x3)"):
+        # The trained DarkNet and one glyph image from a seeded generator on
+        # the card; the forward held to the CPU's (TF32 is off).
+        dnet, dparams, dshape = trained_model("darknet", device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        dimg, dlabel = glyph_batch(gen, 1, hw=dshape[0], channels=dshape[2],
+                                   device="cuda")
+        dlogits = dnet(dimg)
+        cpu_dnet = DarkNetLike({k: v.cpu() for k, v in dparams.items()},
+                               device="cpu")
+        derr = float((dlogits.cpu() - cpu_dnet(dimg.cpu())).abs().max())
+        if not derr <= 1e-4:
+            fail(f"DarkNet forward on the card is {derr} off the CPU's")
+        dlayers = dnet.layer_traffic(dimg[0])
+        dcpu_layers = [type(lt)(lt.inputs.cpu(), lt.weights.cpu())
+                       for lt in dlayers]
+        dpk = sum(int(lt.inputs.shape[0]) for lt in dlayers)
+        print(f"  {dpk} packets of {[int(lt.inputs.shape[1]) for lt in dlayers]}"
+              f" values; logits within {derr:.2e} of the CPU's; label "
+              f"{int(dlabel[0])}, argmax {int(dlogits.argmax())}", flush=True)
+        report["darknet_model"] = {"packets": dpk, "forward_max_err": derr,
+                                   "label": int(dlabel[0])}
+
+    ops.reset_launch_counts()
+    with Phase("DarkNet Fig. 13 cell (4x4_mc2, 40 packets a layer)"):
+        # Through every kernel on the card, then through the plain versions
+        # on the CPU (window order and router step alike): equal rows.
+        t0 = time.perf_counter()
+        kern13 = run_sweep(SweepGrid(**FIG13), lambda _name: dlayers)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fig13_launches = {k.name: k.launches for k in ops.KERNELS}
+        plain13 = run_sweep(SweepGrid(**FIG13, device="cpu"),
+                            lambda _name: dcpu_layers)
+        t2 = time.perf_counter()
+        check_sweep(kern13, "DarkNet Fig. 13 cell", 6)
+        if kern13.rows != plain13.rows:
+            fail("DarkNet Fig. 13 rows differ between the kernels on the card "
+                 "and the plain versions on the CPU")
+        for r in kern13.rows:
+            print(f"  {r['precision']:8s} {r['transform']}: total_bt "
+                  f"{r['total_bt']} cycles {r['cycles']} flits {r['flits']} "
+                  f"reduction {r['reduction_pct']:.2f}% adjusted "
+                  f"{r['adjusted_reduction_pct']:.2f}%", flush=True)
+        print(f"  6 rows identical; card sweep {t1 - t0:.3f} s (K1 "
+              f"{fig13_launches['router_step']}, K2 order "
+              f"{fig13_launches['descending_perm']} launches), CPU plain "
+              f"sweep {t2 - t1:.3f} s", flush=True)
+        report["darknet_fig13"] = {"rows": kern13.rows, "cuda": kern13.stats,
+                                   "plain_cpu": plain13.stats,
+                                   "wall_s": t1 - t0,
+                                   "launches": fig13_launches}
+
+    ops.reset_launch_counts()
+    with Phase("DarkNet full streamed (16x16_mc16, every packet)"):
+        t0 = time.perf_counter()
+        repd = run_sweep(SweepGrid(**DARKNET_FULL), lambda _name: dlayers)
+        torch.cuda.synchronize()
+        walld = time.perf_counter() - t0
+        dfull_launches = {k.name: k.launches for k in ops.KERNELS}
+        check_sweep(repd, "full DarkNet", 3)
+        std = repd.stats
+        drain = max(r["cycles"] for r in repd.rows)
+        for r in repd.rows:
+            if r["flits"] != DARKNET_FULL_RECORD["flits"]:
+                fail(f"full DarkNet {r['transform']}: {r['flits']} flits, "
+                     f"the reference recorded "
+                     f"{DARKNET_FULL_RECORD['flits']}")
+            if r["total_bt"] >= 2**31:
+                fail(f"full DarkNet {r['transform']}: total_bt "
+                     f"{r['total_bt']} passes the int32 range (ROADMAP C5)")
+            same = r["cycles"] == DARKNET_FULL_RECORD["cycles"]
+            print(f"  fixed8 {r['transform']}: total_bt {r['total_bt']} "
+                  f"cycles {r['cycles']} ({'==' if same else '!='} the "
+                  f"reference's {DARKNET_FULL_RECORD['cycles']}) flits "
+                  f"{r['flits']} reduction {r['reduction_pct']:.2f}% "
+                  f"adjusted {r['adjusted_reduction_pct']:.2f}%", flush=True)
+            if not same:
+                # Cycles depend only on the packet lengths and the mesh.
+                fail(f"full DarkNet {r['transform']}: {r['cycles']} cycles, "
+                     f"the reference recorded "
+                     f"{DARKNET_FULL_RECORD['cycles']}")
+        dfull = {"packetize_s": std["packetize_s"],
+                 "simulate_s": std["simulate_s"], "wall_s": walld,
+                 "lane_cycles_per_s": std["cycles_per_sec"],
+                 "us_per_cycle": std["simulate_s"] * 1e6 / drain,
+                 "drain_cycles": drain,
+                 "k1_launches": dfull_launches["router_step"],
+                 "k2_order_launches": dfull_launches["descending_perm"]}
+        print(f"  {dpk} packets x 3 lanes: packetize {dfull['packetize_s']} "
+              f"s, simulate {dfull['simulate_s']} s, sweep wall "
+              f"{walld:.3f} s; {dfull['lane_cycles_per_s']} lane-cycles/s, "
+              f"{dfull['us_per_cycle']:.3f} us a simulated cycle; K1 "
+              f"{dfull['k1_launches']}, K2 order "
+              f"{dfull['k2_order_launches']} launches", flush=True)
+        report["darknet_full"] = {"rows": repd.rows, "stats": std,
+                                  "launches": dfull_launches, **dfull}
+
+    with Phase("device idle share (DarkNet packetize and drain, 16x16_mc16)"):
+        # The full sweep's packetize and drain again, each in one profiler
+        # window, as run_sweep runs them (the shape probe made first).
+        cfg = mesh_by_name("16x16_mc16")
+        dvariants = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
+                     for prec in DARKNET_FULL["precisions"]
+                     for tb in DARKNET_FULL["tiebreaks"]
+                     for tr in DARKNET_FULL["transforms"]]
+        shapes = payload_shapes(dlayers, cfg.lanes, dvariants)
+        torch.cuda.synchronize()
+        shares = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            t = build_traffic_streamed_multi(dlayers, [cfg], dvariants,
+                                             num_streams=cfg.num_mcs,
+                                             shapes=shapes)[0]
+            torch.cuda.synchronize()
+            shares["packetize"] = (prof, (time.perf_counter() - t0) * 1e3)
+        mc_rows = np.broadcast_to(np.asarray(cfg.mc_nodes, np.int32),
+                                  (len(dvariants), cfg.num_mcs))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = sim.simulate_batch(cfg, t, mc_nodes=mc_rows,
+                                     chunk=DARKNET_FULL["chunk"])
+            torch.cuda.synchronize()
+            shares["drain"] = (prof, (time.perf_counter() - t0) * 1e3)
+        if [r.drain_cycle for r in res] != [r["cycles"] for r in repd.rows]:
+            fail("the profiled DarkNet drain's cycles differ from the sweep's")
+        for stage, (prof, window_ms) in shares.items():
+            spans = device_spans(prof)
+            busy = busy_us(spans) / 1e3
+            share = (1 - busy / window_ms) if spans else None
+            report["darknet_full"][f"idle_{stage}"] = {
+                "window_ms": window_ms, "busy_ms": busy,
+                "device_spans": len(spans), "idle_share": share}
+            print(f"  {stage}: device idle share "
+                  f"{'not measured' if share is None else f'{share:.4f}'} "
+                  f"(busy {busy:.3f} ms of a {window_ms:.3f} ms window, "
+                  f"{len(spans)} device spans)", flush=True)
+
     ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
@@ -968,7 +1175,9 @@ def main() -> None:
 
     with Phase("launches"):
         paths = {"no_noc": nonoc_launches, "noc": main_launches,
-                 "o3": o3_launches, "ordering_unit": unit_launches}
+                 "o3": o3_launches, "darknet_fig13": fig13_launches,
+                 "darknet_full": dfull_launches,
+                 "ordering_unit": unit_launches}
         launches = {k.name: sum(p[k.name] for p in paths.values())
                     for k in ops.KERNELS}
         print("  " + " | ".join(f"{n} {p}" for n, p in paths.items()),
@@ -995,6 +1204,11 @@ def main() -> None:
                      "(one a call expected)")
         print(f"  descending_perm calls {perm_calls}: one window-order "
               "launch each", flush=True)
+        for name, launched in (("darknet_fig13", fig13_launches),
+                               ("darknet_full", dfull_launches)):
+            for k in ("router_step", "descending_perm"):
+                if launched[k] <= 0:
+                    fail(f"the {name} path did not launch {k}")
         for name in ("bitonic_sort", "order_unit", "chain_select",
                      "popcount", "bt_count"):
             if unit_launches[name] <= 0:
@@ -1238,36 +1452,65 @@ def main() -> None:
             s = w.bit_length() - 1
             return r * (w // 2) * s * (s + 1) // 2
 
-        # K4 at the entry point's shape: (512, 512) tie-heavy keys, one
-        # payload. Per compare-exchange: one compare and two selects per
-        # array; bytes: keys and payload read once and written once.
-        r_, w_ = 512, 512
-        keys = torch.from_numpy(rng.integers(0, 33, (r_, w_))
-                                .astype(np.int32)).cuda()
-        pay = random_words(rng, (r_, w_))
-        got = bitonic_sort.sort_windows(keys, pay)
-        want = ref.sort_windows_ref(keys, pay)
-        err = max_err(zip(got, want))
-        ms = cuda_ms(lambda: bitonic_sort.sort_windows(keys, pay), 50)
-        kl = launch_ms(lambda: bitonic_sort.sort_windows(keys, pay), 50)
-        dk = device_ms(lambda: bitonic_sort.sort_windows(keys, pay), 50)
-        pms = cuda_ms(lambda: ref.sort_windows_ref(keys, pay), 5)
+        # K4 at the entry point's shape, (512, 512) tie-heavy keys with one
+        # payload, then with none and two, on full-range keys, and at the
+        # other widths (one payload). Per compare-exchange: one compare and
+        # two selects per array (the key, and with payloads the index: the
+        # payloads are gathered once); bytes: keys and payloads read once
+        # and written once. Beside each, torch.sort + one gather a payload;
+        # at the headline shape also the host's time a call (the wrapper)
+        # and a bare ctypes launch with its outputs already made.
+        k4_timed = [((512, 512), "ties", 1), ((512, 512), "ties", 0),
+                    ((512, 512), "ties", 2), ((512, 512), "full", 1),
+                    *(((r_, w_), "ties", 1) for r_, w_ in K4_SHAPES[2:])]
+        for (r_, w_), kind, n_pay in k4_timed:
+            keys = k4_keys(rng, kind, r_, w_)
+            pays = [random_words(rng, (r_, w_)) for _ in range(n_pay)]
 
-        def library_sort():
-            sk, si = torch.sort(keys, dim=1, descending=True)
-            return sk, torch.gather(pay, 1, si)
+            def k4(keys=keys, pays=pays):
+                return bitonic_sort.sort_windows(keys, *pays)
 
-        lms = cuda_ms(library_sort, 50)
-        bound, by = bound_of(16 * r_ * w_, network_ces(r_, w_) * 5)
-        kernels.append(dict(
-            name="bitonic_sort", route="cuda",
-            source="src/repro_torch/kernels/csrc/bitonic_sort.cu",
-            replaces="src/repro/kernels/bitonic_sort.py:80",
-            launches=launches["bitonic_sort"], max_abs_err=err, ms=ms,
-            launch_ms=kl, device_ms=dk,
-            plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=lms,
-            library="torch.sort(descending=True) + one gather",
-            shape=[r_, w_, 1]))
+            def p4(keys=keys, pays=pays):
+                return ref.sort_windows_ref(keys, *pays)
+
+            def library_sort(keys=keys, pays=pays):
+                sk, si = torch.sort(keys, dim=1, descending=True)
+                return (sk, *(torch.gather(p, 1, si) for p in pays))
+
+            arrays = 1 + n_pay
+            bound, by = bound_of(8 * arrays * r_ * w_, network_ces(r_, w_)
+                                 * (1 + 2 * min(arrays, 2)))
+            entry = dict(
+                name="bitonic_sort" + ("" if (r_, w_, kind, n_pay)
+                                       == (512, 512, "ties", 1) else
+                                       f"/{r_}x{w_} {kind} {n_pay}p"),
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/bitonic_sort.cu",
+                replaces="src/repro/kernels/bitonic_sort.py:80",
+                launches=launches["bitonic_sort"],
+                max_abs_err=max_err(zip(k4(), p4())), ms=cuda_ms(k4, 50),
+                launch_ms=launch_ms(k4, 50), device_ms=device_ms(k4, 50),
+                plain_ms=cuda_ms(p4, 5), bound_ms=bound, bound_by=by,
+                library_ms=cuda_ms(library_sort, 50),
+                library="torch.sort(descending=True) + one gather a payload",
+                shape=[r_, w_, kind, n_pay])
+            if not entry["name"].count("/"):
+                outs = k4()
+                ptrs = [keys.data_ptr(), *(p.data_ptr() for p in pays),
+                        None, *(o.data_ptr() for o in outs), None]
+                torch.cuda.synchronize()
+                for label, call in (
+                        ("wrapper_ms", k4),
+                        ("ctypes_launch_ms",
+                         lambda: bitonic_sort.KERNEL.launch(
+                             *ptrs, r_, w_, n_pay,
+                             torch.cuda.current_stream().cuda_stream))):
+                    t0 = time.perf_counter()
+                    for _ in range(200):
+                        call()
+                    entry[label] = (time.perf_counter() - t0) * 1e3 / 200
+                    torch.cuda.synchronize()
+            kernels.append(entry)
         # K5 at the entry points' shapes: (512, 512) words, and conv2's
         # operands zero-padded to (1600, 256); per compare-exchange one
         # compare and two selects per array (key, value, index), plus one
@@ -1421,6 +1664,10 @@ def main() -> None:
                   f"{kd['plain_ms']:.4f} ms, bound {kd['bound_ms']:.5f} ms by {kd['bound_by']}, "
                   f"library {lib}) shape {kd['shape']} launches "
                   f"{kd['launches']}", flush=True)
+            if "wrapper_ms" in kd:
+                print(f"    host time a call: {kd['wrapper_ms']:.4f} ms "
+                      f"through the wrapper, {kd['ctypes_launch_ms']:.4f} ms "
+                      "a bare ctypes launch", flush=True)
         report["kernels"] = kernels
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -2,12 +2,14 @@
 bitonic key sort of each row, 0-2 payloads riding the swaps.
 
 Replaces ``repro/kernels/bitonic_sort.py`` ``sort_windows_pallas``. The
-network (``csrc/bitonic.cuh``, shared with the ordering-unit and
-chain-select kernels) is the reference's stage for stage, with the same
-strict comparisons, so the output equals the Pallas kernel's bit for bit on
-ties too. Whole rows are sorted in shared memory, one thread per
-compare-exchange pair, one block barrier per substage; the bytes bound it
-on paper, the chain of barrier-separated substages in practice.
+network is the reference's stage for stage, with the same strict
+comparisons, so the output equals the Pallas kernel's bit for bit on ties
+too. Rows of 32 to 1,024 keys are sorted in registers (``warp_bitonic`` in
+``csrc/bitonic.cuh``), a warp a row below W = 256 and two from 256, with no
+block barrier: the int32 keys compared signed, each element's index riding
+beside its key when there are payloads, and the payloads gathered from
+shared memory by the final index. Other widths run the shared-memory
+network, one block barrier a substage.
 """
 from __future__ import annotations
 

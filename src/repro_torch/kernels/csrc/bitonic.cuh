@@ -1,7 +1,7 @@
 // The bitonic compare-exchange network shared by the window-sort (K4),
 // ordering-unit (K5) and chain-select (K6) kernels, in shared memory for a
-// block, and in registers for a row a warp holds (warp_bitonic, K5's rows
-// up to 1,024).
+// block, and in registers for a row one or two warps hold (warp_bitonic:
+// K4's and K5's rows of 32 to 1,024).
 //
 // It is the network of repro/kernels/bitonic_sort.py (_compare_exchange),
 // stage for stage: in stage (k, j), lane i pairs with lane i ^ 2^j, and the
@@ -88,17 +88,19 @@ __device__ void bitonic_network(int* key, int* p0, int* p1, int w, int rows,
 // by G = 2^LG warps (W <= 1,024 at E <= 32): element i = (part 32 + lane) E
 // + r is key[r] of lane `lane` of the row's warp `part` (E a power of two,
 // so every register index is a compile-time constant), and pay[p][r] its NP
-// payloads (NP = 0 to 2; with NP = 0 the one-row array is a placeholder;
-// order_unit.cu takes NP = 0, tools/k5_probe.py builds NP = 1 and 2, which
-// tests/test_torch_order_unit_warp.py holds to the plain version).
+// payloads (NP = 0 to 2; with NP = 0 the one-row array is a placeholder):
+// order_unit.cu takes NP = 0 (its packed word), bitonic_sort.cu NP = 0 or
+// 1 (the int32 key, the element's index) on one warp or two,
+// tools/k5_probe.py NP = 1 and 2 on one.
 // Substage (k, j) pairs element i with i ^ 2^j:
 //  * 2^j < E: two registers of one thread;
 //  * E <= 2^j < 32 E: lane l with lane l ^ (2^j / E), same register, the
 //    words exchanged by __shfl_xor_sync;
 //  * 2^j >= 32 E (G > 1): warp `part` with warp part ^ (2^j / 32 E), same
-//    lane and register, the words exchanged through the row's `xbuf` (W
-//    words of shared memory) between two waits at the row's named barrier
-//    `bar` (1 to 15, for its 32 G threads); no payloads then.
+//    lane and register, the words exchanged through the row's `xbuf` ((1 +
+//    NP) W words of shared memory: the keys, then each payload) between
+//    two waits at the row's named barrier `bar` (1 to 15, for its 32 G
+//    threads).
 // Across threads both partners reach the same decision: the pair's
 // direction from bit k+1 of i, the lower element taking the other only on a
 // strict `before`. With G = 1 there is no barrier: the warp is the row.
@@ -117,8 +119,8 @@ __device__ __forceinline__ void warp_bitonic(
                      : E == 16 ? 4 : 5;               // log2(E)
     constexpr int LT = LE + 5;                        // log2(32 E)
     constexpr int LW = LT + LG;                       // log2(W)
+    constexpr int W = 1 << LW;
     static_assert((1 << LE) == E, "E must be a power of two <= 32");
-    static_assert(LG == 0 || NP == 0, "payloads stay inside one warp");
     // Bit b >= LE of element i: the lane's below LT, the part's above.
     auto high_bit = [&](int b) {
         return b < LT ? (lane >> (b - LE)) & 1 : (part >> (b - LT)) & 1;
@@ -177,24 +179,72 @@ __device__ __forceinline__ void warp_bitonic(
                     }
                 }
             } else {                // across warps: part ^ 2^(j-LT)
-                // A warp's E words a lane at xbuf[part 32 E + r 32 + lane]:
-                // no bank conflicts either way.
+                // A warp's E words a lane at xbuf[part 32 E + r 32 + lane]
+                // (payload p W words further on): no bank conflicts either
+                // way.
                 unsigned* own = xbuf + part * 32 * E + lane;
                 const unsigned* theirs =
                     xbuf + (part ^ (1 << (j - LT))) * 32 * E + lane;
 #pragma unroll
-                for (int r = 0; r < E; ++r) own[r * 32] = key[r];
+                for (int r = 0; r < E; ++r) {
+                    own[r * 32] = key[r];
+#pragma unroll
+                    for (int p = 0; p < NP; ++p)
+                        own[(p + 1) * W + r * 32] = pay[p][r];
+                }
                 asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(32 << LG)
                              : "memory");
 #pragma unroll
                 for (int r = 0; r < E; ++r) {
                     const unsigned mine = key[r], other = theirs[r * 32];
-                    key[r] = before(mine ^ flip, other ^ flip) ? other : mine;
+                    const bool take = before(mine ^ flip, other ^ flip);
+                    key[r] = take ? other : mine;
+#pragma unroll
+                    for (int p = 0; p < NP; ++p)
+                        pay[p][r] = take ? theirs[(p + 1) * W + r * 32]
+                                         : pay[p][r];
                 }
                 asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(32 << LG)
                              : "memory");
             }
         }
+    }
+}
+
+// Lane l's E adjacent words, in 16-byte loads and stores where E >= 4 (the
+// run's address 16-byte aligned).
+template <int E>
+__device__ __forceinline__ void load_run(const unsigned* p, unsigned (&v)[E]) {
+    if constexpr (E >= 4) {
+#pragma unroll
+        for (int c = 0; c < E / 4; ++c) {
+            const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + c);
+            v[4 * c] = q.x;
+            v[4 * c + 1] = q.y;
+            v[4 * c + 2] = q.z;
+            v[4 * c + 3] = q.w;
+        }
+    } else if constexpr (E == 2) {
+        const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+        v[0] = q.x;
+        v[1] = q.y;
+    } else {
+        v[0] = __ldg(p);
+    }
+}
+
+template <int E>
+__device__ __forceinline__ void store_run(unsigned* p,
+                                          const unsigned (&v)[E]) {
+    if constexpr (E >= 4) {
+#pragma unroll
+        for (int c = 0; c < E / 4; ++c)
+            reinterpret_cast<uint4*>(p)[c] =
+                make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+    } else if constexpr (E == 2) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
+    } else {
+        p[0] = v[0];
     }
 }
 

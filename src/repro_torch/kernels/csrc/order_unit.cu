@@ -51,42 +51,6 @@ struct PackedKeyDesc {
     }
 };
 
-// Lane l's E adjacent words, in 16-byte loads and stores where E >= 4.
-template <int E>
-__device__ __forceinline__ void load_run(const unsigned* p, unsigned (&v)[E]) {
-    if constexpr (E >= 4) {
-#pragma unroll
-        for (int c = 0; c < E / 4; ++c) {
-            const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + c);
-            v[4 * c] = q.x;
-            v[4 * c + 1] = q.y;
-            v[4 * c + 2] = q.z;
-            v[4 * c + 3] = q.w;
-        }
-    } else if constexpr (E == 2) {
-        const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-        v[0] = q.x;
-        v[1] = q.y;
-    } else {
-        v[0] = __ldg(p);
-    }
-}
-
-template <int E>
-__device__ __forceinline__ void store_run(unsigned* p,
-                                          const unsigned (&v)[E]) {
-    if constexpr (E >= 4) {
-#pragma unroll
-        for (int c = 0; c < E / 4; ++c)
-            reinterpret_cast<uint4*>(p)[c] =
-                make_uint4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
-    } else if constexpr (E == 2) {
-        *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
-    } else {
-        p[0] = v[0];
-    }
-}
-
 // A row of W = 32 E G words on G = 2^LG warps; kWarps / G rows a block.
 template <int E, int LG>
 __global__ void __launch_bounds__(kWarps * 32)

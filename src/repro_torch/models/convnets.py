@@ -1,21 +1,25 @@
-"""LeNet as a PyTorch module - the paper's evaluated DNN workload.
+"""LeNet and the DarkNet-like CNN as PyTorch modules - the paper's two
+evaluated DNN workloads.
 
-The port of ``repro.models.convnets.LeNet``. Public methods keep the JAX
-layouts so the tests compare like with like: activations are NHWC (one
-image is (H, W, C)), conv weights HWIO, linear weights (in, out), and the
-parameter names are the reference's (``c1w``, ``c1b``, ... ``f3b``).
-Convolutions and matrix products go to ``F.conv2d`` / ``torch.matmul`` in
-full float32 (TF32 is off on the card, see ``_device``).
+The port of ``repro.models.convnets``. Public methods keep the JAX layouts
+so the tests compare like with like: activations are NHWC (one image is
+(H, W, C)), conv weights HWIO, linear weights (in, out), and the parameter
+names are the reference's (``c1w`` ... ``f3b``; ``c0w`` ... ``fb``), their
+shapes given by each model's ``specs()``. Convolutions and matrix products
+go to ``F.conv2d`` / ``torch.matmul`` in full float32 (TF32 is off on the
+card, see ``_device``).
 
 ``layer_traffic`` turns one inference into the (input, weight) operand
-streams the NoC injects; ``weight_stream`` is the no-NoC (Tab. I) stream.
-``DarkNetLike`` arrives with a later slice (ROADMAP queue A, item 4).
+streams the NoC injects; LeNet's ``weight_stream`` is the no-NoC (Tab. I)
+stream (the reference's DarkNet has none). :func:`trained_model` loads
+either model with the trained weights the repository carries.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, NamedTuple, Optional
+from pathlib import Path
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,17 +29,15 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..noc.traffic import (LayerTraffic, conv_layer_traffic,
                            linear_layer_traffic)
+from .spec import ParamSpec
 
-__all__ = ["LeNet", "params_from_jax", "load_checkpoint", "Checkpoint",
-           "LENET_SHAPES"]
+__all__ = ["LeNet", "DarkNetLike", "params_from_jax", "load_checkpoint",
+           "Checkpoint", "TrainedModel", "trained_model"]
 
-LENET_SHAPES = {
-    "c1w": (5, 5, 1, 6), "c1b": (6,),
-    "c2w": (5, 5, 6, 16), "c2b": (16,),
-    "f1w": (400, 120), "f1b": (120,),
-    "f2w": (120, 84), "f2b": (84,),
-    "f3w": (84, 10), "f3b": (10,),
-}
+# The trained checkpoints the repository carries, one directory a model.
+WEIGHTS = Path(__file__).resolve().parents[3] / "experiments" / "weights"
+_F32 = torch.float32
+_CONV_AXES = (None, None, "conv_in", "conv_out")
 
 
 def params_from_jax(np_params: Dict[str, np.ndarray],
@@ -92,8 +94,21 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
-    """k x k max pool, stride k, VALID, on NHWC."""
+    """k x k max pool, stride k, VALID (an odd edge dropped), on NHWC."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
+
+
+def _set_params(module: nn.Module, params: Dict[str, torch.Tensor],
+                device: DeviceLike):
+    """Register ``params`` on ``module`` as frozen parameters, each checked
+    against its spec's shape."""
+    dev = resolve_device(device)
+    for name, spec in module.specs().items():
+        t = params[name].to(device=dev, dtype=spec.dtype)
+        if tuple(t.shape) != spec.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{spec.shape}")
+        setattr(module, name, nn.Parameter(t.clone(), requires_grad=False))
 
 
 class LeNet(nn.Module):
@@ -110,12 +125,23 @@ class LeNet(nn.Module):
     def __init__(self, params: Dict[str, torch.Tensor],
                  device: DeviceLike = None):
         super().__init__()
-        dev = resolve_device(device)
-        for name, shape in LENET_SHAPES.items():
-            t = params[name].to(device=dev, dtype=torch.float32)
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-            setattr(self, name, nn.Parameter(t.clone(), requires_grad=False))
+        _set_params(self, params, device)
+
+    @staticmethod
+    def specs() -> Dict[str, ParamSpec]:
+        lin = ("mlp", "embed")
+        return {
+            "c1w": ParamSpec((5, 5, 1, 6), _CONV_AXES, dtype=_F32),
+            "c1b": ParamSpec((6,), ("conv_out",), init="zeros", dtype=_F32),
+            "c2w": ParamSpec((5, 5, 6, 16), _CONV_AXES, dtype=_F32),
+            "c2b": ParamSpec((16,), ("conv_out",), init="zeros", dtype=_F32),
+            "f1w": ParamSpec((400, 120), lin, dtype=_F32),
+            "f1b": ParamSpec((120,), ("embed",), init="zeros", dtype=_F32),
+            "f2w": ParamSpec((120, 84), lin, dtype=_F32),
+            "f2b": ParamSpec((84,), ("embed",), init="zeros", dtype=_F32),
+            "f3w": ParamSpec((84, 10), lin, dtype=_F32),
+            "f3b": ParamSpec((10,), ("embed",), init="zeros", dtype=_F32),
+        }
 
     def _trunk(self, x: torch.Tensor):
         """NHWC batch -> the per-layer input activations of every image."""
@@ -160,3 +186,91 @@ class LeNet(nn.Module):
             F.pad(self.f3w.T, (0, 4)).reshape(-1),
         ]
         return torch.cat(parts).detach()
+
+
+class DarkNetLike(nn.Module):
+    """DarkNet-reference-style CNN on 64x64x3 (the paper's Sec. V-B input,
+    reduced 'to speed up the simulation'): 3x3 VALID convs doubling the
+    channels (16, 32, 64, 128), each followed by leaky-ReLU 0.1 and a 2x2
+    max pool (spatial 62 -> 31, 29 -> 14, 12 -> 6, 4 -> 2), then a linear
+    head on the 512 features, flattened in NHWC order.
+
+    ``params``: reference-layout tensors (``c0w`` ... ``c3b``, ``fw``,
+    ``fb``).
+    """
+
+    input_shape = (64, 64, 3)
+    channels = (16, 32, 64, 128)
+    n_classes = 10
+    head_dim = 2 * 2 * 128              # the last block's (2, 2, 128) output
+
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 device: DeviceLike = None):
+        super().__init__()
+        _set_params(self, params, device)
+
+    @classmethod
+    def specs(cls) -> Dict[str, ParamSpec]:
+        s = {}
+        cin = cls.input_shape[-1]
+        for i, cout in enumerate(cls.channels):
+            s[f"c{i}w"] = ParamSpec((3, 3, cin, cout), _CONV_AXES,
+                                    dtype=_F32)
+            s[f"c{i}b"] = ParamSpec((cout,), ("conv_out",), init="zeros",
+                                    dtype=_F32)
+            cin = cout
+        s["fw"] = ParamSpec((cls.head_dim, cls.n_classes), ("mlp", "embed"),
+                            dtype=_F32)
+        s["fb"] = ParamSpec((cls.n_classes,), ("embed",), init="zeros",
+                            dtype=_F32)
+        return s
+
+    def _trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """NHWC batch -> each conv block's pooled output, NHWC."""
+        out = []
+        for i in range(len(self.channels)):
+            x = _pool(F.leaky_relu(_conv(x, getattr(self, f"c{i}w"),
+                                         getattr(self, f"c{i}b")), 0.1))
+            out.append(x)
+        return out
+
+    def activations(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Per-layer INPUT activations for one image (H, W, C): the image,
+        the first three blocks' outputs (H, W, C), the last one's flattened
+        in HWC order."""
+        hs = self._trunk(x[None])
+        return [x, *(h[0] for h in hs[:-1]), hs[-1][0].reshape(-1)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Batched forward: x (B, 64, 64, 3) -> logits (B, 10)."""
+        h = self._trunk(x)[-1]
+        return h.reshape(h.shape[0], -1) @ self.fw + self.fb
+
+    def layer_traffic(self, x: torch.Tensor) -> List[LayerTraffic]:
+        """The operand streams one inference (image (H, W, C)) injects: one
+        a conv (27, 144, 288 and 576 values a packet), then the head's
+        (512)."""
+        a = self.activations(x)
+        return [*(conv_layer_traffic(a[i], getattr(self, f"c{i}w"))
+                  for i in range(len(self.channels))),
+                linear_layer_traffic(a[-1], self.fw.T)]
+
+
+_MODELS = {"lenet": LeNet, "darknet": DarkNetLike}
+
+
+class TrainedModel(NamedTuple):
+    model: nn.Module
+    params: Dict[str, torch.Tensor]
+    input_shape: Tuple[int, int, int]
+
+
+def trained_model(name: str, device: DeviceLike = None) -> TrainedModel:
+    """``"lenet"`` or ``"darknet"`` with the trained weights under
+    ``experiments/weights/<name>`` (the newest step): the module, its
+    checkpoint parameters and its input shape (H, W, C)."""
+    if name not in _MODELS:
+        raise ValueError(f"unknown model {name!r}; known: {sorted(_MODELS)}")
+    ck = load_checkpoint(str(WEIGHTS / name), device)
+    cls = _MODELS[name]
+    return TrainedModel(cls(ck.params, device), ck.params, cls.input_shape)

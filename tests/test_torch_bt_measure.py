@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch", reason="the port's tests need torch")
 import jax.numpy as jnp  # noqa: E402
+from test_torch_traffic import one_torch_thread  # noqa: E402,F401
 
 from repro.core import bt as jbt, flits as jflits  # noqa: E402
 from repro_torch.core import bt, flits  # noqa: E402

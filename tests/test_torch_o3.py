@@ -24,6 +24,7 @@ from repro_torch.core.wire import by_name  # noqa: E402
 from repro_torch.kernels import min_hamming as mh  # noqa: E402
 
 from test_torch_ordering import FIXED8, FLOATS, _bits  # noqa: E402
+from test_torch_traffic import one_torch_thread  # noqa: E402,F401
 
 
 def _planes(rng, r, w, planes, zero_frac):

@@ -33,7 +33,8 @@ from repro_torch.noc import sim  # noqa: E402
 from repro_torch.noc.topology import OPPOSITE, PORT_LOCAL, mesh_by_name  # noqa: E402
 from repro_torch.noc.traffic import TrafficAssembler  # noqa: E402
 
-from test_torch_traffic import _layers_np, _variants, ref, ref_layers  # noqa: E402,F401
+from test_torch_traffic import (_layers_np, _variants,  # noqa: E402,F401
+                                one_torch_thread, ref, ref_layers)
 from repro_torch.noc import traffic  # noqa: E402
 
 

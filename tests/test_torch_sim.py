@@ -23,8 +23,8 @@ from repro.noc.topology import mesh_by_name as jmesh  # noqa: E402
 from repro_torch.noc import sim  # noqa: E402
 from repro_torch.noc.topology import mesh_by_name  # noqa: E402
 
-from test_torch_traffic import (_layers_np, _variants, ref,  # noqa: E402,F401
-                                ref_layers)
+from test_torch_traffic import (_layers_np, _variants,  # noqa: E402,F401
+                                one_torch_thread, ref, ref_layers)
 from repro_torch.noc import traffic  # noqa: E402
 
 CHUNK = 128

@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch", reason="the port's tests need torch")
 import jax.numpy as jnp  # noqa: E402
+from test_torch_traffic import one_torch_thread  # noqa: E402,F401
 
 from repro.kernels import order_unit as jorder_unit  # noqa: E402
 from repro.kernels import sort_windows_desc as jsort  # noqa: E402

@@ -13,7 +13,8 @@ from repro_torch.noc import traffic  # noqa: E402
 from repro_torch.noc.topology import mesh_by_name  # noqa: E402
 
 from test_torch_traffic import (_assert_traffic_equal, _layers_np,  # noqa: E402,F401
-                                _variants, ref, ref_layers)
+                                _variants, one_torch_thread, ref,
+                                ref_layers)
 
 
 @pytest.mark.parametrize("chunk", [3, 16])

@@ -10,7 +10,8 @@ torch = pytest.importorskip("torch", reason="the port's tests need torch")
 from repro.noc import SweepGrid as JGrid, run_sweep as jrun_sweep  # noqa: E402
 from repro_torch.noc import SweepGrid, run_sweep  # noqa: E402
 
-from test_torch_traffic import _layers_np, ref, ref_layers  # noqa: E402,F401
+from test_torch_traffic import (_layers_np, one_torch_thread,  # noqa: E402,F401
+                                ref, ref_layers)
 
 AXES = dict(meshes=("4x4_mc2",), transforms=("O0", "O1", "O2"),
             tiebreaks=("stable", "pattern"), precisions=("float32", "fixed8"),

@@ -8,7 +8,8 @@ from repro.noc import SweepGrid as JGrid, run_sweep as jrun_sweep  # noqa: E402
 from repro_torch.noc import SweepGrid, run_sweep  # noqa: E402
 
 from test_torch_sweep import AXES  # noqa: E402
-from test_torch_traffic import _layers_np, ref, ref_layers  # noqa: E402,F401
+from test_torch_traffic import (_layers_np, one_torch_thread,  # noqa: E402,F401
+                                ref, ref_layers)
 
 
 def test_streamed_sweep_rows_match_reference(ref_layers):

@@ -40,6 +40,19 @@ CELLS = [(prec, tb, o) for prec in ("float32", "fixed8")
          for tb in ("stable", "pattern") for o in ("O0", "O1", "O2")]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the module's tests on one torch thread (the port's test modules
+    import this fixture). The plain paths are many small ops: beside the
+    other test workers, intra-op threads only contend for the cores (one
+    plain 8x8 drain of test_torch_sim took 175 s on all threads and 49 s
+    on one, every core busy)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def ref():
     """Reference LeNet params (numpy), image and per-layer traffic."""

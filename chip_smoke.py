@@ -21,10 +21,16 @@ those paths against its plain PyTorch version:
                the all-ones (2^17 + 1, 32) stream (S2 = 2^32), the router
                step
                over 512 cycles of a synthetic 6-lane batch on 4x4, 8x8 and
-               16x16 meshes, one for each shared-memory layout (all 13 state
-               leaves after every 128-cycle chunk; the FIFO's phantom router
-               row excluded), the window sort at (512, 512) and on rows
-               that leave the last block part-filled at W = 128 to 2,048
+               16x16 meshes, one for each shared-memory layout, and of
+               synthetic result-phase batches (the PEs inject, the MCs
+               receive: 14 streams on 4x4, 60 on 8x8 with mc4 and mc8 lanes
+               in one batch, 240 on 16x16, the sideband in global memory;
+               padding streams of length 0 at router 0; each batch fills a
+               local FIFO, where the full-FIFO pop finds its stream) (all
+               13 state leaves after every 128-cycle chunk; the FIFO's
+               phantom router row excluded), the window sort at (512, 512)
+               and on rows that leave the last block part-filled at W = 128
+               to 2,048
                with 0-2 payloads on tie-heavy and full-range int32 keys
                (INT32_MIN, INT32_MAX), and at (37, 128) with uint32 and
                float32 payloads through ``ops``, the ordering unit at
@@ -66,13 +72,22 @@ those paths against its plain PyTorch version:
                glyph image (64x64x3): Fig. 13's cell (4x4_mc2, float32 and
                fixed8, pattern, O0/O1/O2, 40 packets a layer) through the
                kernels on the card and the plain versions on the CPU, equal
-               rows; then every packet (99,690) streamed at 16x16_mc16,
-               fixed8, pattern, O0/O1/O2: every lane drained, the
-               reference's flits (1,309,994) and cycles (181,474, printed
-               beside each lane's), totals below 2^31, packetize and
-               simulate seconds, lane-cycles a second, microseconds a
-               simulated cycle, K1 and window-order launches, and the
-               device idle share of its packetize and of its drain;
+               rows, and Tab. II's net power saving at its fixed8 / O2
+               reduction; then the full DarkNet cell
+               (benchmarks/darknet_full.py): every packet (99,690) streamed
+               at 16x16_mc16 x {edge, interleaved} x {roundrobin, nearest},
+               fixed8, pattern, O0/O1/O2, with the result phase: every lane
+               and result lane drained, each row's cycles, flits,
+               result_cycles and result_flits equal to the reference's
+               record, totals below 2^31, packetize, simulate, result
+               packetize and result simulate seconds, microseconds a
+               simulated cycle of the request drain (16 streams) and of the
+               result drain (240), K1 and window-order launches, the
+               card's result values (``layer_results``) within the float32
+               summation bound of the CPU's (the count differing bitwise
+               printed), and, from a second run of the cell in one
+               profiler window (rows equal to the first's), each
+               run_sweep stage's device idle share from its span;
  9. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
@@ -85,7 +100,10 @@ those paths against its plain PyTorch version:
 11. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
-               the plain versions on the CPU: equal rows;
+               the plain versions on the CPU, and 4x4_mc2 and 8x8_mc4 x
+               {edge, corner, interleaved} x {roundrobin, nearest} with the
+               result phase (O0/O1/O2, both precisions, result values summed
+               on the CPU for both) likewise: equal rows;
 12. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
@@ -93,7 +111,10 @@ those paths against its plain PyTorch version:
                the mean of single launches each in its own event pair;
                the router step also on a warm state (each paper mesh's
                full-width batch after 4,096 cycles), in microseconds per
-               simulated cycle; the window order at conv2's (1600, 150)
+               simulated cycle, and at the result drain's shape (a
+               synthetic batch of the full DarkNet cell's four combos, 12
+               lanes of 240 PE streams); the window order at conv2's
+               (1600, 150)
                float32 operands (stable and pattern), the chain
                preamble at conv2 under O3a (2 x 1,600 x 152), the BT
                counter at the no-NoC shape (total alone) and at (2^20, 8)
@@ -130,19 +151,52 @@ AXES = dict(meshes=MESHES, transforms=("O0", "O1", "O2"),
             models=("lenet",))
 AXES_O3 = dict(AXES, transforms=("O0", "O3", "O3a"))
 PINNED = dict(max_packets_per_layer=8, chunk=128)
+# The pinned LeNet budget over every placement and affinity with the
+# result phase, on the 4x4 and 8x8 meshes.
+PLACED = dict(meshes=("4x4_mc2", "8x8_mc4"),
+              placements=("edge", "corner", "interleaved"),
+              affinity=("roundrobin", "nearest"), transforms=("O0", "O1", "O2"),
+              tiebreaks=("pattern",), precisions=("float32", "fixed8"),
+              models=("lenet",), result_phase=True)
 # DarkNet: Fig. 13's cell (benchmarks/fig13.py: 4x4_mc2, both precisions,
-# pattern, O0/O1/O2, 40 packets a layer), and the full streamed traffic at
-# 16x16_mc16 (benchmarks/darknet_full.py's operand phase on the edge
-# placement and round-robin dealing), whose cycles and flits depend only on
-# packet lengths and the mesh: experiments/darknet_full.json records them.
+# pattern, O0/O1/O2, 40 packets a layer), and the full DarkNet cell
+# (benchmarks/darknet_full.py's _grid(): every packet streamed at
+# 16x16_mc16, edge and interleaved MCs, round-robin and nearest affinity,
+# the result phase), whose cycles and flits depend only on packet lengths,
+# the mesh, the placement and the affinity: experiments/darknet_full.json
+# records them, (cycles, flits, result_cycles, result_flits) by combo.
 FIG13 = dict(meshes=("4x4_mc2",), transforms=("O0", "O1", "O2"),
              tiebreaks=("pattern",), precisions=("float32", "fixed8"),
              models=("darknet",), max_packets_per_layer=40, chunk=2048)
-DARKNET_FULL = dict(meshes=("16x16_mc16",), transforms=("O0", "O1", "O2"),
-                    tiebreaks=("pattern",), precisions=("fixed8",),
-                    models=("darknet",), max_packets_per_layer=None,
-                    chunk=4096)
-DARKNET_FULL_RECORD = {"cycles": 181_474, "flits": 1_309_994}
+DARKNET_FULL = dict(meshes=("16x16_mc16",), placements=("edge", "interleaved"),
+                    affinity=("roundrobin", "nearest"),
+                    transforms=("O0", "O1", "O2"), tiebreaks=("pattern",),
+                    precisions=("fixed8",), models=("darknet",),
+                    max_packets_per_layer=None, result_phase=True, chunk=4096)
+DARKNET_FULL_RECORD = {
+    ("edge", "roundrobin"): (181_474, 1_309_994, 1_003, 8_580),
+    ("edge", "nearest"): (146_705, 1_309_994, 955, 8_580),
+    ("interleaved", "roundrobin"): (81_924, 1_309_994, 3_095, 8_580),
+    ("interleaved", "nearest"): (82_310, 1_309_994, 562, 8_580),
+}
+# Synthetic result-phase K1 batches: (placement, affinity) lanes of one
+# mesh size, PE streams padded to the size's most PEs (8x8: mc4 and mc8
+# lanes together, 60 streams).
+RESULT_K1 = {
+    "4x4": [("4x4_mc2", "edge", "roundrobin"), ("4x4_mc2", "corner", "nearest"),
+            ("4x4_mc2", "interleaved", "nearest")],
+    "8x8": [("8x8_mc4", "edge", "roundrobin"), ("8x8_mc4", "corner", "nearest"),
+            ("8x8_mc8", "edge", "nearest"),
+            ("8x8_mc8", "interleaved", "roundrobin")],
+    "16x16": [("16x16_mc16", "edge", "roundrobin"),
+              ("16x16_mc16", "edge", "nearest"),
+              ("16x16_mc16", "interleaved", "nearest")],
+}
+# The full DarkNet cell's result-drain shape: its four (placement,
+# affinity) combos, three lanes each, 240 PE streams.
+RESULT_K1_CELL = [("16x16_mc16", pl, aff)
+                  for pl in DARKNET_FULL["placements"]
+                  for aff in DARKNET_FULL["affinity"]] * 3
 # The chain's selection penalties (repro_torch.kernels.min_hamming).
 PENALTIES = np.array([0, 1 << 28, 1 << 30, (1 << 30) + (1 << 28)], np.int32)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
@@ -204,10 +258,12 @@ def cuda_ms(fn, reps: int, make=None) -> float:
 
 def device_spans(prof):
     """Sorted (start, end) microseconds of the device activity that a
-    torch.profiler window recorded."""
+    torch.profiler window recorded (not a span's annotation on the
+    device's timeline)."""
     from torch.autograd import DeviceType
     return sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
 
 
 def busy_us(spans) -> float:
@@ -217,6 +273,11 @@ def busy_us(spans) -> float:
         total += max(0.0, b - max(a, end))
         end = max(end, b)
     return total
+
+
+def clip_spans(spans, lo: float, hi: float):
+    """Sorted (start, end) spans cut to the window [lo, hi]."""
+    return [(max(a, lo), min(b, hi)) for a, b in spans if b > lo and a < hi]
 
 
 def device_ms(fn, reps: int, make=None):
@@ -267,6 +328,68 @@ def synthetic_traffic(cfg, batch: int, packets: int, seed: int):
                      dtype=np.uint64).astype(np.uint32)
     asm.add_chunk(0, 0, torch.from_numpy(w.view(np.int32)).cuda())
     return asm.finish()
+
+
+def result_batch(lanes, packets: int, seed: int):
+    """A synthetic result-phase batch on the card: for each (mesh,
+    placement, affinity) lane, three layers of ``packets`` random 8-bit
+    result values through ``build_result_traffic`` (O1 windows of 64), PE
+    streams padded with router 0 to the lanes' most PEs. Returns (a config
+    of the lanes' mesh size, traffic, per-lane injection nodes)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.wire import by_name
+    from repro_torch.noc.topology import (affinity_mc_table, mc_placement,
+                                          mesh_by_name)
+    from repro_torch.noc.traffic import (LayerTraffic, build_result_traffic,
+                                         stack_traffics)
+    rng = np.random.default_rng(seed)
+    pe_pad = max(mesh_by_name(m).num_routers - mesh_by_name(m).num_mcs
+                 for m, _, _ in lanes)
+    empty = torch.zeros((packets, 0))
+    parts, nodes = [], []
+    for mesh, placement, affinity in lanes:
+        base = mesh_by_name(mesh)
+        cfg = dataclasses.replace(base, mc_nodes=mc_placement(
+            base.rows, base.cols, base.num_mcs, placement))
+        values = [[torch.from_numpy(rng.integers(-128, 128, packets)
+                                    .astype(np.int8)).cuda()]
+                  for _ in range(3)]
+        t = build_result_traffic(
+            [LayerTraffic(empty, empty)] * 3, cfg, [(by_name("O1"), None)],
+            mc_table=affinity_mc_table(cfg) if affinity == "nearest" else None,
+            num_streams=pe_pad, values=values, device="cuda")
+        parts.append(t.variant(0))
+        nodes.append(cfg.pe_nodes + (0,) * (pe_pad - len(cfg.pe_nodes)))
+    return (cfg, stack_traffics(parts),
+            torch.as_tensor(np.asarray(nodes, np.int32), device="cuda"))
+
+
+def router_vs_plain(cfg, wire, mc, label: str, chunks: int = 4):
+    """The router kernel and the plain step side by side from a zero state
+    over ``chunks`` 128-cycle chunks: all 13 state leaves equal after
+    every chunk (the FIFO on real router rows). Returns the final state
+    and the fullest local (PE-side injection) FIFO seen after any chunk."""
+    import torch
+    from repro_torch.kernels import ref, router_step
+    from repro_torch.noc import sim
+    key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
+    b, m = wire.length.shape
+    a = sim.make_state(cfg, m, batch=b, device="cuda")
+    p = sim.SimState(*(leaf.clone() for leaf in a))
+    fullest = 0
+    for chunk_i in range(chunks):
+        a = router_step.router_step(a, wire, mc, 128, key, True)
+        p = ref.router_step_ref(p, wire, mc, 128, key, True)
+        torch.cuda.synchronize()
+        for name, u, v in zip(a._fields, a, p):
+            if name == "fifo":
+                u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
+            if not torch.equal(u, v):
+                fail(f"router kernel != plain step on {label}: leaf {name} "
+                     f"after chunk {chunk_i}")
+        fullest = max(fullest, int(a.count[:, :cfg.num_routers, 4].max()))
+    return a, fullest
 
 
 def random_words(rng, shape):
@@ -391,7 +514,8 @@ def main() -> None:
                                      order_unit, popcount, popcount_order,
                                      ref, router_step)
     from repro_torch.models import DarkNetLike, LeNet, trained_model
-    from repro_torch.noc import SweepGrid, run_sweep, sim
+    from repro_torch.noc import SweepGrid, power, run_sweep, sim
+    from repro_torch.noc import sweep as sweep_mod
     from repro_torch.noc.topology import mesh_by_name
     from repro_torch.quant import quantize_fixed8
 
@@ -458,25 +582,37 @@ def main() -> None:
             cfg = mesh_by_name(mesh)
             key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
             t = synthetic_traffic(cfg, batch=6, packets=400, seed=1)
-            wr = sim.fuse_traffic(t)
             mc = torch.as_tensor(np.broadcast_to(
                 np.asarray(cfg.mc_nodes, np.int32), (6, cfg.num_mcs)).copy(),
                 device="cuda")
-            a = sim.make_state(cfg, cfg.num_mcs, batch=6, device="cuda")
-            b = sim.SimState(*(leaf.clone() for leaf in a))
-            for chunk_i in range(4):
-                a = router_step.router_step(a, wr, mc, 128, key, True)
-                b = ref.router_step_ref(b, wr, mc, 128, key, True)
-                torch.cuda.synchronize()
-                for name, u, v in zip(a._fields, a, b):
-                    if name == "fifo":
-                        u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
-                    if not torch.equal(u, v):
-                        fail(f"router kernel != plain step on {mesh}: leaf "
-                             f"{name} after chunk {chunk_i}")
+            a, _ = router_vs_plain(cfg, sim.fuse_traffic(t), mc, mesh)
             lay = router_step.smem_layout(key, cfg.num_mcs)
             print(f"  router kernel == plain step on {mesh} over 512 cycles, "
                   f"6 lanes, {int(a.ejected.sum())} flits ejected (shared "
+                  f"memory: {', '.join(lay.in_shared) or 'routing state'}; "
+                  f"{lay.bytes} bytes, {lay.threads} threads)", flush=True)
+        # Result-phase batches: the PEs inject (14, 60 and 240 streams,
+        # padding streams of length 0 at router 0), the MCs receive; lanes
+        # of one batch differ in their injection nodes and MC destinations.
+        # Each batch must fill a local FIFO: a full local FIFO that pops is
+        # where the kernel finds the injecting stream (local_stream).
+        for size, packets in (("4x4", 3000), ("8x8", 12000),
+                              ("16x16", 40000)):
+            cfg, t, mc = result_batch(RESULT_K1[size], packets, seed=3)
+            wr = sim.fuse_traffic(t)
+            a, fullest = router_vs_plain(cfg, wr, mc, f"{size} result batch")
+            if fullest < cfg.vc_depth:
+                fail(f"the {size} result batch filled no local FIFO (fullest "
+                     f"{fullest} of {cfg.vc_depth}): the full-FIFO pop went "
+                     "unchecked")
+            key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
+            m = int(wr.length.shape[1])
+            lay = router_step.smem_layout(key, m)
+            print(f"  router kernel == plain step on the {size} result batch "
+                  f"over 512 cycles: {wr.length.shape[0]} lanes of {m} PE "
+                  f"streams, {int(a.ejected.sum())} of "
+                  f"{int(wr.length.sum())} flits ejected, fullest local FIFO "
+                  f"{fullest} of {cfg.vc_depth} (shared "
                   f"memory: {', '.join(lay.in_shared) or 'routing state'}; "
                   f"{lay.bytes} bytes, {lay.threads} threads)", flush=True)
         # Window sort: every register width (one warp a row below 256, two
@@ -846,7 +982,6 @@ def main() -> None:
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.noc.sweep import _QUANTIZERS
         from repro_torch.noc.traffic import (build_traffic_streamed,
-                                             build_traffic_streamed_multi,
                                              payload_shapes)
         cfg = mesh_by_name("8x8_mc4")
         variants3 = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
@@ -1032,97 +1167,153 @@ def main() -> None:
               f"{fig13_launches['router_step']}, K2 order "
               f"{fig13_launches['descending_perm']} launches), CPU plain "
               f"sweep {t2 - t1:.3f} s", flush=True)
+        # Tab. II's net accounting (benchmarks/table2_power.py) with this
+        # card's DarkNet fixed8 / O2 reduction: 64 toggling bits a link and
+        # cycle, 112 links, four separated-ordering units.
+        red = kern13.row(precision="fixed8", transform="O2")["reduction_pct"]
+        tab2 = {"reduction": red / 100,
+                "net": power.net_power_saving_mw(64, red / 100, 112, 4,
+                                                 separated=True),
+                "link_power_ours_mw": power.paper_example(),
+                "link_power_banerjee_mw": power.paper_example(
+                    power.HW.e_bit_banerjee_pj)}
+        n = tab2["net"]
+        print(f"  Tab. II: fixed8 O2 reduction {red:.2f}%: link "
+              f"{n['baseline_link_mw']:.3f} -> {n['ordered_link_mw']:.3f} mW, "
+              f"ordering units {n['ordering_units_mw']:.3f} mW, net saving "
+              f"{n['net_saving_mw']:.3f} mW; paper example "
+              f"{tab2['link_power_ours_mw']:.3f} mW (ours) / "
+              f"{tab2['link_power_banerjee_mw']:.3f} mW (Banerjee)",
+              flush=True)
         report["darknet_fig13"] = {"rows": kern13.rows, "cuda": kern13.stats,
                                    "plain_cpu": plain13.stats,
                                    "wall_s": t1 - t0,
-                                   "launches": fig13_launches}
+                                   "launches": fig13_launches, "tab2": tab2}
 
     ops.reset_launch_counts()
-    with Phase("DarkNet full streamed (16x16_mc16, every packet)"):
+    with Phase("DarkNet full cell (16x16_mc16, every packet, result phase)"):
         t0 = time.perf_counter()
         repd = run_sweep(SweepGrid(**DARKNET_FULL), lambda _name: dlayers)
         torch.cuda.synchronize()
         walld = time.perf_counter() - t0
         dfull_launches = {k.name: k.launches for k in ops.KERNELS}
-        check_sweep(repd, "full DarkNet", 3)
+        check_sweep(repd, "full DarkNet cell", 12)
         std = repd.stats
-        drain = max(r["cycles"] for r in repd.rows)
         for r in repd.rows:
-            if r["flits"] != DARKNET_FULL_RECORD["flits"]:
-                fail(f"full DarkNet {r['transform']}: {r['flits']} flits, "
-                     f"the reference recorded "
-                     f"{DARKNET_FULL_RECORD['flits']}")
-            if r["total_bt"] >= 2**31:
-                fail(f"full DarkNet {r['transform']}: total_bt "
-                     f"{r['total_bt']} passes the int32 range (ROADMAP C5)")
-            same = r["cycles"] == DARKNET_FULL_RECORD["cycles"]
-            print(f"  fixed8 {r['transform']}: total_bt {r['total_bt']} "
-                  f"cycles {r['cycles']} ({'==' if same else '!='} the "
-                  f"reference's {DARKNET_FULL_RECORD['cycles']}) flits "
-                  f"{r['flits']} reduction {r['reduction_pct']:.2f}% "
-                  f"adjusted {r['adjusted_reduction_pct']:.2f}%", flush=True)
-            if not same:
-                # Cycles depend only on the packet lengths and the mesh.
-                fail(f"full DarkNet {r['transform']}: {r['cycles']} cycles, "
-                     f"the reference recorded "
-                     f"{DARKNET_FULL_RECORD['cycles']}")
+            got = (r["cycles"], r["flits"], r["result_cycles"],
+                   r["result_flits"])
+            want = DARKNET_FULL_RECORD[(r["placement"], r["affinity"])]
+            print(f"  {r['placement']:11s} {r['affinity']:10s} "
+                  f"{r['transform']}: total_bt {r['total_bt']} cycles "
+                  f"{r['cycles']} flits {r['flits']} reduction "
+                  f"{r['reduction_pct']:.2f}% adjusted "
+                  f"{r['adjusted_reduction_pct']:.2f}%; result_bt "
+                  f"{r['result_bt']} result_cycles {r['result_cycles']} "
+                  f"result_flits {r['result_flits']} "
+                  f"({'==' if got == want else '!='} the reference's "
+                  f"{want})", flush=True)
+            # Cycles and flits depend only on packet lengths, the mesh, the
+            # placement and the affinity, not on payload values.
+            if got != want:
+                fail(f"full DarkNet {r['placement']}/{r['affinity']} "
+                     f"{r['transform']}: (cycles, flits, result_cycles, "
+                     f"result_flits) {got}, the reference recorded {want}")
+            for col in ("total_bt", "result_bt"):
+                if not 0 < r[col] < 2**31:
+                    fail(f"full DarkNet {r['placement']}/{r['affinity']} "
+                         f"{r['transform']}: {col} {r[col]} outside (0, "
+                         "2^31) (ROADMAP C5)")
+        # The result values the cell sent: layer_results on the card (float32
+        # sums in the card's order) held to the CPU's within the summation
+        # bound 2 k u sum|x y| (u = 2^-24; ROADMAP C11), the values that
+        # differ bitwise counted.
+        from repro_torch.noc.traffic import layer_results
+        rdiffer = rtotal = 0
+        for lt in dlayers:
+            got = layer_results(lt, device="cuda").cpu()
+            x, y = lt.inputs.cpu(), lt.weights.cpu()
+            want = layer_results(type(lt)(x, y), device="cpu")
+            bound = (2 * x.shape[1] * 2.0**-24
+                     * (x.double() * y.double()).abs().sum(dim=1))
+            if not bool(((got.double() - want.double()).abs()
+                         <= bound).all()):
+                fail(f"layer_results on the card differ from the CPU's "
+                     f"beyond 2 k u sum|x y| on a layer of k = {x.shape[1]}")
+            rdiffer += int((got.view(torch.int32)
+                            != want.view(torch.int32)).sum())
+            rtotal += want.numel()
+        print(f"  layer_results on the card within 2 k u sum|x y| of the "
+              f"CPU's: {rdiffer} of {rtotal} values differ bitwise (C11)",
+              flush=True)
+        drain = max(r["cycles"] for r in repd.rows)
+        rdrain = max(r["result_cycles"] for r in repd.rows)
         dfull = {"packetize_s": std["packetize_s"],
-                 "simulate_s": std["simulate_s"], "wall_s": walld,
+                 "simulate_s": std["simulate_s"],
+                 "result_packetize_s": std["result_packetize_s"],
+                 "result_simulate_s": std["result_simulate_s"],
+                 "wall_s": walld,
                  "lane_cycles_per_s": std["cycles_per_sec"],
                  "us_per_cycle": std["simulate_s"] * 1e6 / drain,
-                 "drain_cycles": drain,
+                 "result_us_per_cycle": std["result_simulate_s"] * 1e6
+                 / rdrain,
+                 "drain_cycles": drain, "result_drain_cycles": rdrain,
+                 "layer_results_differ_bitwise": [rdiffer, rtotal],
                  "k1_launches": dfull_launches["router_step"],
                  "k2_order_launches": dfull_launches["descending_perm"]}
-        print(f"  {dpk} packets x 3 lanes: packetize {dfull['packetize_s']} "
-              f"s, simulate {dfull['simulate_s']} s, sweep wall "
-              f"{walld:.3f} s; {dfull['lane_cycles_per_s']} lane-cycles/s, "
-              f"{dfull['us_per_cycle']:.3f} us a simulated cycle; K1 "
-              f"{dfull['k1_launches']}, K2 order "
+        print(f"  {dpk} packets x 12 lanes: packetize "
+              f"{dfull['packetize_s']} s, simulate {dfull['simulate_s']} s "
+              f"({dfull['us_per_cycle']:.3f} us a simulated cycle over "
+              f"{drain} cycles, 16 streams), result packetize "
+              f"{dfull['result_packetize_s']} s, result simulate "
+              f"{dfull['result_simulate_s']} s "
+              f"({dfull['result_us_per_cycle']:.3f} us a simulated cycle "
+              f"over {rdrain} cycles, 240 streams); sweep wall "
+              f"{walld:.3f} s; {dfull['lane_cycles_per_s']} lane-cycles/s; "
+              f"K1 {dfull['k1_launches']}, K2 order "
               f"{dfull['k2_order_launches']} launches", flush=True)
         report["darknet_full"] = {"rows": repd.rows, "stats": std,
                                   "launches": dfull_launches, **dfull}
 
-    with Phase("device idle share (DarkNet packetize and drain, 16x16_mc16)"):
-        # The full sweep's packetize and drain again, each in one profiler
-        # window, as run_sweep runs them (the shape probe made first).
-        cfg = mesh_by_name("16x16_mc16")
-        dvariants = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
-                     for prec in DARKNET_FULL["precisions"]
-                     for tb in DARKNET_FULL["tiebreaks"]
-                     for tr in DARKNET_FULL["transforms"]]
-        shapes = payload_shapes(dlayers, cfg.lanes, dvariants)
+    with Phase("device idle share (DarkNet packetize and drains, 16x16_mc16)"):
+        # The cell's run_sweep call again, in one profiler window: each
+        # stage's idle share from its run_sweep span (the device's busy
+        # time inside the span), the rows equal to the timed run's.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-        shares = {}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            t = build_traffic_streamed_multi(dlayers, [cfg], dvariants,
-                                             num_streams=cfg.num_mcs,
-                                             shapes=shapes)[0]
-            torch.cuda.synchronize()
-            shares["packetize"] = (prof, (time.perf_counter() - t0) * 1e3)
-        mc_rows = np.broadcast_to(np.asarray(cfg.mc_nodes, np.int32),
-                                  (len(dvariants), cfg.num_mcs))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = sim.simulate_batch(cfg, t, mc_nodes=mc_rows,
-                                     chunk=DARKNET_FULL["chunk"])
-            torch.cuda.synchronize()
-            shares["drain"] = (prof, (time.perf_counter() - t0) * 1e3)
-        if [r.drain_cycle for r in res] != [r["cycles"] for r in repd.rows]:
-            fail("the profiled DarkNet drain's cycles differ from the sweep's")
-        for stage, (prof, window_ms) in shares.items():
-            spans = device_spans(prof)
-            busy = busy_us(spans) / 1e3
+            repd_p = run_sweep(SweepGrid(**DARKNET_FULL),
+                               lambda _name: dlayers)
+        if repd_p.rows != repd.rows:
+            fail("the profiled DarkNet cell's rows differ from the timed "
+                 "run's")
+        k1_spans = sorted((e.time_range.start, e.time_range.end)
+                          for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and "router_cycles" in e.name)
+        spans = device_spans(prof)
+        for stage in ("packetize", "drain", "result_packetize",
+                      "result_drain"):
+            windows = [(e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.name == f"run_sweep/{stage}"
+                       and e.device_type == DeviceType.CPU]
+            if len(windows) != 1:
+                fail(f"the profiled DarkNet cell has {len(windows)} "
+                     f"run_sweep/{stage} spans, one expected")
+            lo, hi = windows[0]
+            window_ms = (hi - lo) / 1e3
+            busy = busy_us(clip_spans(spans, lo, hi)) / 1e3
+            k1_ms = busy_us(clip_spans(k1_spans, lo, hi)) / 1e3
             share = (1 - busy / window_ms) if spans else None
             report["darknet_full"][f"idle_{stage}"] = {
-                "window_ms": window_ms, "busy_ms": busy,
-                "device_spans": len(spans), "idle_share": share}
-            print(f"  {stage}: device idle share "
+                "window_ms": window_ms, "busy_ms": busy, "k1_ms": k1_ms,
+                "idle_share": share}
+            print(f"  {stage}: {k1_ms:.3f} ms in K1; device idle share "
                   f"{'not measured' if share is None else f'{share:.4f}'} "
-                  f"(busy {busy:.3f} ms of a {window_ms:.3f} ms window, "
-                  f"{len(spans)} device spans)", flush=True)
+                  f"(busy {busy:.3f} ms of a {window_ms:.3f} ms span)",
+                  flush=True)
 
     ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
@@ -1250,6 +1441,40 @@ def main() -> None:
               f"CPU plain sweep {t2 - t1:.3f} s", flush=True)
         report["pinned_o3"] = {"rows": kern3.rows, "cuda": kern3.stats,
                                "plain_cpu": plain3.stats}
+        # Placements x affinities with the result phase: through the kernels
+        # on the card and the plain versions on the CPU. Both sweeps get the
+        # result values summed on the CPU: the float32 sums are not a kernel
+        # and their order differs between devices (ROADMAP C11).
+        result_values = sweep_mod.result_values
+
+        def cpu_result_values(lts, variants, max_packets_per_layer=None,
+                              device=None):
+            cpu = [type(lt)(lt.inputs.cpu(), lt.weights.cpu()) for lt in lts]
+            return [[v.to(device) for v in layer] for layer in result_values(
+                cpu, variants, max_packets_per_layer, device="cpu")]
+
+        sweep_mod.result_values = cpu_result_values
+        try:
+            t0 = time.perf_counter()
+            kernp = run_sweep(SweepGrid(**PLACED, **PINNED),
+                              lambda _name: layers)
+            t1 = time.perf_counter()
+            plainp = run_sweep(SweepGrid(**PLACED, **PINNED, device="cpu"),
+                               lambda _name: layers)
+            t2 = time.perf_counter()
+        finally:
+            sweep_mod.result_values = result_values
+        check_sweep(kernp, "pinned placement sweep", 72)
+        if kernp.rows != plainp.rows:
+            fail("pinned placement x affinity x result-phase rows differ "
+                 "between the kernels on the card and the plain versions on "
+                 "the CPU")
+        print(f"  72 placement x affinity rows with the result phase "
+              f"identical; card sweep {t1 - t0:.3f} s (result simulate "
+              f"{kernp.stats['result_simulate_s']} s), CPU plain sweep "
+              f"{t2 - t1:.3f} s", flush=True)
+        report["pinned_placed"] = {"rows": kernp.rows, "cuda": kernp.stats,
+                                   "plain_cpu": plainp.stats}
 
     kernels = []
     with Phase("timing"):
@@ -1347,62 +1572,78 @@ def main() -> None:
         kernels[-2]["measure_ms"] = measure_ms
         print(f"  wire.measure on the (7778, 8) weight stream: "
               f"{measure_ms:.4f} ms host wall a call", flush=True)
+        def k1_entry(name, cfg, wr, mc, cyc):
+            """K1 over one ``cyc``-cycle chunk of ``wr`` from a cold state:
+            times, the plain step's, and the bound."""
+            key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
+            b, m = wr.length.shape
+            cold = sim.make_state(cfg, m, batch=b, device="cuda")
+
+            def fresh():
+                return (sim.SimState(*(leaf.clone() for leaf in cold)),)
+
+            def k1(state):
+                return router_step.router_step(state, wr, mc, cyc, key, True)
+
+            kout = k1(*fresh())
+            pout = ref.router_step_ref(cold, wr, mc, cyc, key, True)
+            torch.cuda.synchronize()
+            err = 0
+            for leaf, u, v in zip(kout._fields, kout, pout):
+                if leaf == "fifo":
+                    u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
+                err = max(err, int((u.long() - v.long()).abs().max()))
+            nr, p, v, lf = cfg.num_routers, 5, cfg.num_vcs, cfg.lanes + 1
+            state_bytes = sum(leaf.numel() * 4 for leaf in cold)
+            injected = int(kout.inj_ptr.sum())
+            nbytes = 2 * state_bytes + injected * lf * 4 + 2 * b * m * 4
+            moved = int(kout.link_flits.sum())
+            # Per lane-cycle: route + credit per (router, slot) ~12 ops, the
+            # round-robin scan (router, out-port, slot) ~4 ops; per moved or
+            # injected flit: XOR + popcount + add per lane, and the LF-word
+            # copy.
+            ops_n = (b * cyc * (nr * p * v * 12 + nr * p * p * v * 4)
+                     + (moved + injected) * (cfg.lanes * 3 + lf))
+            tb_, to_ = nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S
+            lay = router_step.smem_layout(key, m)
+            return dict(
+                name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/router_step.cu",
+                replaces="src/repro/kernels/router_step.py:269",
+                launches=launches["router_step"], max_abs_err=err,
+                ms=cuda_ms(k1, 20, make=fresh),
+                launch_ms=launch_ms(k1, 20, make=fresh),
+                device_ms=device_ms(k1, 20, make=fresh),
+                plain_ms=cuda_ms(lambda: ref.router_step_ref(
+                    cold, wr, mc, cyc, key, True), 2),
+                bound_ms=max(tb_, to_) * 1e3,
+                bound_by="bytes" if tb_ >= to_ else "operations",
+                library_ms=None,
+                library="none: no PyTorch call computes a router cycle",
+                shape=[b, nr, m, int(wr.wire.shape[2]), cyc],
+                shared=list(lay.in_shared))
+
         # K1 at the main-path shape: the full-width 8x8_mc4 batch (12
         # lanes, MC streams padded to 8), one 256-cycle chunk from a cold
-        # state.
+        # state; then at the result drain's: a synthetic batch of the full
+        # DarkNet cell's combos, 12 lanes of 240 PE streams at 16x16
+        # (sideband, link_last and payload in global memory).
         cfg = mesh_by_name("8x8_mc4")
-        key = (cfg.rows, cfg.cols, cfg.num_vcs, cfg.vc_depth, cfg.lanes)
         variants = [(wire.by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
                     for prec in AXES["precisions"]
                     for tb in AXES["tiebreaks"] for tr in AXES["transforms"]]
-        t = build_traffic_streamed(layers, cfg, variants, num_streams=8)
-        wr = sim.fuse_traffic(t)
+        wr = sim.fuse_traffic(build_traffic_streamed(layers, cfg, variants,
+                                                     num_streams=8))
         b, m = wr.length.shape
         mc = torch.as_tensor(np.broadcast_to(np.asarray(
             tuple(cfg.mc_nodes) + (0,) * (m - cfg.num_mcs), np.int32),
             (b, m)).copy(), device="cuda")
         cyc = 256
-        cold = sim.make_state(cfg, m, batch=b, device="cuda")
-
-        def fresh():
-            return (sim.SimState(*(leaf.clone() for leaf in cold)),)
-
-        def k1(state):
-            return router_step.router_step(state, wr, mc, cyc, key, True)
-
-        kout = k1(*fresh())
-        pout = ref.router_step_ref(cold, wr, mc, cyc, key, True)
-        torch.cuda.synchronize()
-        err = 0
-        for name, u, v in zip(kout._fields, kout, pout):
-            if name == "fifo":
-                u, v = u[:, :cfg.num_routers], v[:, :cfg.num_routers]
-            err = max(err, int((u.long() - v.long()).abs().max()))
-        ms = cuda_ms(k1, 20, make=fresh)
-        kl = launch_ms(k1, 20, make=fresh)
-        dk = device_ms(k1, 20, make=fresh)
-        pms = cuda_ms(lambda: ref.router_step_ref(cold, wr, mc, cyc, key,
-                                                  True), 2)
-        nr, p, v, lf = cfg.num_routers, 5, cfg.num_vcs, cfg.lanes + 1
-        state_bytes = sum(leaf.numel() * 4 for leaf in cold)
-        injected = int(kout.inj_ptr.sum())
-        nbytes = 2 * state_bytes + injected * lf * 4 + 2 * b * m * 4
-        moved = int(kout.link_flits.sum())
-        # Per lane-cycle: route + credit per (router, slot) ~12 ops, the
-        # round-robin scan (router, out-port, slot) ~4 ops; per moved or
-        # injected flit: XOR + popcount + add per lane, and the LF-word copy.
-        ops_n = (b * cyc * (nr * p * v * 12 + nr * p * p * v * 4)
-                 + (moved + injected) * (cfg.lanes * 3 + lf))
-        tb_, to_ = nbytes / HBM_BYTES_PER_S, ops_n / ALU_OPS_PER_S
-        kernels.append(dict(
-            name="router_step", route="cuda",
-            source="src/repro_torch/kernels/csrc/router_step.cu",
-            replaces="src/repro/kernels/router_step.py:269",
-            launches=launches["router_step"], max_abs_err=err, ms=ms,
-            launch_ms=kl, device_ms=dk,
-            plain_ms=pms, bound_ms=max(tb_, to_) * 1e3,
-            bound_by="bytes" if tb_ >= to_ else "operations",
-            library_ms=None, shape=[b, nr, m, int(wr.wire.shape[2]), cyc]))
+        kernels.append(k1_entry("router_step", cfg, wr, mc, cyc))
+        cfg_r, t_r, mc_r = result_batch(RESULT_K1_CELL, 40000, seed=5)
+        k1_result = k1_entry("router_step/result 16x16 M=240", cfg_r,
+                             sim.fuse_traffic(t_r), mc_r, cyc)
+        del t_r
         # K1 on a warm state: each paper mesh's full-width 12-lane batch
         # after 4,096 cycles (FIFOs occupied, every stream injecting), then
         # 256-cycle chunks from clones of that state: microseconds per
@@ -1447,6 +1688,7 @@ def main() -> None:
                   f" us), {b_w} lanes, {warm[mesh]['flits_in_network']} flits"
                   f" in the network after 4,096 cycles", flush=True)
         kernels[-1]["warm"] = warm
+        kernels.append(k1_result)
         def network_ces(r, w):
             """Compare-exchanges of the bitonic network over r rows of w."""
             s = w.bit_length() - 1

@@ -16,7 +16,8 @@ items 11 and 13).
 
 ``order_packets`` is the row-batched form the packetizer uses: row ``i`` of
 its result is ``order(inputs[i], weights[i])``, i.e. each packet is its own
-stream, windowed by ``window`` inside the packet.
+stream, windowed by ``window`` inside the packet; ``order_single_packets``
+is the same for the result phase's single-stream packets.
 """
 from __future__ import annotations
 
@@ -76,6 +77,17 @@ class WireTransform:
     def apply_single(self, values: torch.Tensor, lanes: int) -> FlitStream:
         return pack(self.order_single(values, lanes), lanes)
 
+    def _per_row(self, *planes: torch.Tensor):
+        """This transform windowed per packet - the row width ``k``, or its
+        own window where narrower - and the (n, k) rows zero-padded to a
+        multiple of that window."""
+        k = planes[0].shape[1]
+        w = k if self.window is None or self.window >= k else self.window
+        kp = -(-k // w) * w
+        if kp != k:
+            planes = tuple(F.pad(p, (0, kp - k)) for p in planes)
+        return dataclasses.replace(self, window=w), planes
+
     def order_packets(self, inputs: torch.Tensor, weights: torch.Tensor,
                       lanes: int):
         """Row-batched :meth:`order` over (n, k) packets -> (n, k') each
@@ -83,15 +95,21 @@ class WireTransform:
         further padded to a multiple of ``lanes // 2``)."""
         if not self.reorders:
             return inputs, weights
-        n, k = inputs.shape
-        w = k if self.window is None or self.window >= k else self.window
-        kp = -(-k // w) * w
-        if kp != k:
-            inputs = F.pad(inputs, (0, kp - k))
-            weights = F.pad(weights, (0, kp - k))
-        inner = dataclasses.replace(self, window=w)
+        n = inputs.shape[0]
+        inner, (inputs, weights) = self._per_row(inputs, weights)
         oi, ow = inner.order(inputs.reshape(-1), weights.reshape(-1), lanes)
         return oi.reshape(n, -1), ow.reshape(n, -1)
+
+    def order_single_packets(self, values: torch.Tensor,
+                             lanes: int) -> torch.Tensor:
+        """Row-batched :meth:`order_single` over (n, k) single-stream
+        packets (the result phase's) -> (n, k'), padded as
+        :meth:`order_packets` pads."""
+        if not self.reorders:
+            return values
+        n = values.shape[0]
+        inner, (values,) = self._per_row(values)
+        return inner.order_single(values.reshape(-1), lanes).reshape(n, -1)
 
 
 class IdentityTransform(WireTransform):

@@ -59,8 +59,16 @@
 //       which the stream's threads work out from the request bytes and the
 //       round-robin pointers of the cycle's start (kept in two buffers), and
 //       the popping thread, which reads the head slot, writes the new flit
-//       into it. Counts move by shared-memory atomics (a FIFO may be popped
-//       and pushed in one phase).
+//       into it. That thread finds the stream in one read: phase 1 records,
+//       for each local FIFO, the stream whose next flit goes there (a
+//       result drain has up to 240 streams, one per PE, where a scan of
+//       every stream would sit on each such pop: 12 % of a cycle at 240
+//       streams on an H100 80GB HBM3 at 700 W, tools/k1_pop_probe.py).
+//       Two streams with flits left never share a router (one stream an
+//       MC, or a PE; padding streams are empty), so each local FIFO has at
+//       most one writer.
+//       Counts move by shared-memory atomics (a FIFO may be popped and
+//       pushed in one phase).
 //  * The phantom router row of the FIFO is never read or written.
 //  * A lane whose every flit has ejected (and whose drain cycle is recorded)
 //    can change no state but `cycle`, so the remaining cycles of the launch
@@ -100,9 +108,10 @@ struct Dims {
 // stays in global memory.
 struct Layout {
     int head, count, rr, link_bt, link_flits, inj_ptr, inj_bt, inj_last,
-        length, mc, inj_top, inj_next, tail, req, inj_row, side, last, pay;
+        length, mc, inj_top, inj_next, tail, req, inj_row, local_stream, side,
+        last, pay;
 };
-constexpr int LAYOUT_FIELDS = 18;
+constexpr int LAYOUT_FIELDS = 19;
 
 // One lane's tensors (lane 0's base pointers; the kernel adds its lane).
 struct Lanes {
@@ -251,6 +260,9 @@ __global__ void __launch_bounds__(MAX_THREADS) router_cycles(
     int* tail = smem + lay.tail;              // tail slot | count << 16
     unsigned char* req = (unsigned char*)(smem + lay.req);
     int* irow = smem + lay.inj_row;
+    // Per local FIFO (router, VC): the stream that last found its next flit
+    // bound there; a reader checks it against that stream's inj_next.
+    int* lstream = smem + lay.local_stream;
     int* side = smem + lay.side;              // [slot][FIFO], when SIDE_S
     int* last = LAST_S ? smem + lay.last : last_g;
     int* pay = smem + lay.pay;                // FIFO rows, when PAY_S
@@ -271,6 +283,7 @@ __global__ void __launch_bounds__(MAX_THREADS) router_cycles(
         lfl[j] = lfl_g[j];
     }
     for (int k = tid; k < g.nr * RS; k += nt) req[k] = NO_REQUEST;
+    for (int k = tid; k < g.nr * V; k += nt) lstream[k] = -1;
     for (int m = tid; m < g.M; m += nt) {
         iptr[m] = iptr_g[m];
         ibt[m] = ibt_g[m];
@@ -332,6 +345,7 @@ __global__ void __launch_bounds__(MAX_THREADS) router_cycles(
                     int sd = irow[(m * RING + slot) * LF + L];
                     next = ((mcn[m] * P + PORT_LOCAL) * V + (sd >> VC_SHIFT))
                          | slot << RING_SHIFT;
+                    lstream[mcn[m] * V + (sd >> VC_SHIFT)] = m;
                 }
                 inext[m] = next;
             }
@@ -409,14 +423,13 @@ __global__ void __launch_bounds__(MAX_THREADS) router_cycles(
                         }
                         // A full local FIFO that pops takes its stream's
                         // injection into the slot just read: the ring row.
-                        if (winner >= (P - 1) * V && (tail[hc] >> 16) >= D)
-                            for (int m = 0; m < g.M; ++m) {
-                                int next = inext[m];
-                                if (next >= 0
-                                    && (next & ((1 << RING_SHIFT) - 1)) == hc)
-                                    inj = (m * RING + (next >> RING_SHIFT))
-                                        * LF;
-                            }
+                        if (winner >= (P - 1) * V && (tail[hc] >> 16) >= D) {
+                            const int m = lstream[r * V + winner - (P - 1) * V];
+                            const int next = m < 0 ? -1 : inext[m];
+                            if (next >= 0
+                                && (next & ((1 << RING_SHIFT) - 1)) == hc)
+                                inj = (m * RING + (next >> RING_SHIFT)) * LF;
+                        }
                     }
                 }
                 from = __shfl_sync(pair, from, lane & 30);
@@ -630,7 +643,7 @@ extern "C" int router_step_run(
     const int* off = (const int*)layout;
     Layout lay{off[0], off[1], off[2], off[3], off[4], off[5], off[6], off[7],
                off[8], off[9], off[10], off[11], off[12], off[13], off[14],
-               off[15], off[16], off[17]};
+               off[15], off[16], off[17], off[18]};
     static_assert(sizeof(Layout) == LAYOUT_FIELDS * sizeof(int),
                   "Layout mirrors router_step.py LAYOUT_FIELDS");
     const int placed = (lay.side >= 0) | (lay.last >= 0) << 1

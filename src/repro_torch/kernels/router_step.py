@@ -44,14 +44,15 @@ KERNEL = CudaKernel(
     replaces="src/repro/kernels/router_step.py:269 make_router_step")
 
 # The arrays of one lane in the kernel's shared memory, in the order of the
-# kernel's ``Layout`` struct. The first fifteen always live there (the
+# kernel's ``Layout`` struct. The first sixteen always live there (the
 # routing state - rr in two buffers - and the per-cycle work arrays: the wire
 # rows fetched so far, each stream's next local FIFO, tail slots, request
-# bytes, the ring of fetched wire rows); the last three are the optional
-# leaves.
+# bytes, the ring of fetched wire rows, each local FIFO's injecting stream);
+# the last three are the optional leaves.
 LAYOUT_FIELDS = ("head", "count", "rr", "link_bt", "link_flits", "inj_ptr",
                  "inj_bt", "inj_last", "length", "mc", "inj_top", "inj_next",
-                 "tail", "req", "inj_row", "side", "link_last", "payload")
+                 "tail", "req", "inj_row", "local_stream", "side", "link_last",
+                 "payload")
 # Placed in this order while they fit; the payload only with the sideband.
 OPTIONAL_LEAVES = ("side", "link_last", "payload")
 MAX_THREADS = 1024
@@ -90,8 +91,9 @@ def smem_layout(mesh_key, num_mcs: int) -> SmemLayout:
     payload, in that order, each while it fits in what a block may have
     (``SMEM_BYTES``). A rule chosen by shape: at L = 16, V = D = 4 a 4x4
     lane holds everything, an 8x8 lane everything but the payload, a 16x16
-    lane the sideband but not ``link_last``. Raises ``ValueError`` if the
-    routing state alone does not fit.
+    lane the sideband but not ``link_last`` - except in its result drain,
+    whose 240 PE streams' wire rings leave no room for the sideband either.
+    Raises ``ValueError`` if the routing state alone does not fit.
 
     Threads: enough that route + credit covers the lane's FIFOs in as few
     rounds of at most 1,024 as it can, the rounds evenly filled, and that
@@ -110,7 +112,7 @@ def smem_layout(mesh_key, num_mcs: int) -> SmemLayout:
         "inj_last": num_mcs * (lanes + 1), "length": num_mcs, "mc": num_mcs,
         "inj_top": num_mcs, "inj_next": num_mcs, "tail": nf,
         "req": nr * -(-nslots // 4),
-        "inj_row": num_mcs * INJ_RING * (lanes + 1),
+        "inj_row": num_mcs * INJ_RING * (lanes + 1), "local_stream": nr * v,
         "side": nf * d, "link_last": npo * (lanes + 1),
         "payload": nf * d * (lanes + 1),
     }

@@ -1,19 +1,20 @@
 """Declarative NoC sweep engine on the paper's axes (Figs. 12-13, Tab. I).
 
-The port of ``repro.noc.sweep.run_sweep`` for meshes x transforms x
-tiebreaks x precisions x models, with the paper's edge MC placement,
-round-robin packet->MC dealing, no compression and no result phase. All
-ordering/precision/tiebreak variants of one (mesh, model) pair share their
-traffic shapes, so each pair packetizes once (payloads ordered once per
-model) and drains in ONE batched simulation. Rows carry the reference's
-keys and values: raw BT totals, exact drain cycles, the reduction against
-the cell's O0 baseline, and the honest reduction that charges the
-recovery index of O2 and O3 at half a transition per bit. The transforms
-axis takes O0, O1, O2, O3 and O3a.
+The port of ``repro.noc.sweep.run_sweep`` for meshes x MC placements x
+packet->MC affinities x transforms x tiebreaks x precisions x models, with
+the optional PE->MC result phase. All ordering/precision/tiebreak variants
+of one (mesh, model) pair share their traffic shapes, so payloads are
+ordered once per model, and every placement x affinity combo of the pair
+rides ONE batched request drain as extra lanes (per-lane ``mc_nodes``);
+the result phase drains every combo's PE->MC traffic in one more batched
+drain. Rows carry the reference's keys and values: raw BT totals, exact
+drain cycles, the reduction against the cell's O0 baseline, the honest
+reduction that charges the recovery index of O2 and O3 at half a
+transition per bit, and the result phase's columns. The transforms axis
+takes O0, O1, O2, O3 and O3a.
 
-Placement, affinity, compression and result-phase axes arrive with later
-slices (ROADMAP queue A, items 9 and 11); until then every row reads
-``placement="edge"``, ``affinity="roundrobin"``, ``compression="none"``.
+The compression axis arrives with a later slice (ROADMAP queue A, item
+11); until then every row reads ``compression="none"``.
 """
 from __future__ import annotations
 
@@ -23,15 +24,19 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .._device import DeviceLike, resolve_device
 from ..core.wire import WireTransform, by_name
 from ..quant import quantize_fixed8
-from .sim import BACKENDS, SimResult, simulate_batch
-from .topology import NocConfig, mesh_by_name, packet_mean_hops, xy_link_loads
-from .traffic import (LayerTraffic, assemble_traffic,
-                      build_traffic_streamed_multi, ordered_payloads,
-                      pad_traffic_length, payload_shapes, stream_lengths)
+from .sim import BACKENDS, SimResult, Traffic, simulate_batch
+from .topology import (AFFINITIES, PLACEMENTS, NocConfig, affinity_mc_table,
+                       mc_placement, mesh_by_name, packet_mean_hops,
+                       xy_link_loads)
+from .traffic import (DEFAULT_RESULT_WINDOW, LayerTraffic, assemble_traffic,
+                      build_result_traffic, build_traffic_streamed_multi,
+                      ordered_payloads, pad_traffic_length, payload_shapes,
+                      result_values, stream_lengths)
 
 __all__ = ["SweepGrid", "SweepReport", "run_sweep", "recovery_overhead_bits",
            "cached_ordered_payloads", "drain_estimate"]
@@ -49,18 +54,32 @@ _LATER = "a later slice of the port (ROADMAP queue A, item {})"
 
 @dataclasses.dataclass(frozen=True)
 class SweepGrid:
-    """One declarative sweep: meshes x transforms x tiebreaks x precisions x
-    models (``repro.noc.sweep.SweepGrid`` on the paper's axes).
+    """One declarative sweep: meshes x MC placements x packet->MC
+    affinities x transforms x tiebreaks x precisions x models, with an
+    optional PE->MC result phase (``repro.noc.sweep.SweepGrid`` without
+    the compression, serving and fault axes).
 
     meshes: PAPER_NOCS names, ``RxC_mcN`` specs, or NocConfig instances.
+    placements: MC placement strategies (``topology.PLACEMENTS``); ``edge``
+        keeps each mesh's resolved mc_nodes, the others re-place its MCs.
+    affinity: packet->MC strategies (``topology.AFFINITIES``):
+        ``roundrobin`` deals packet g to MC ``g % M``, ``nearest`` serves
+        each PE from its hop-minimising MC (``affinity_mc_table``).
     max_packets_per_layer: deterministic-stride neuron subsampling budget;
         ``None`` packetizes the full layers through the streamed path.
+    result_phase: also drain each cell's PE->MC result traffic; the rows
+        gain ``result_bt``/``result_cycles``/``result_flits`` and the
+        single-stream accounting columns (``None`` when off).
+    result_window: result values per result packet
+        (``traffic.DEFAULT_RESULT_WINDOW`` when ``None``).
     backend: the router step - ``"auto"`` (the Hopper kernel on CUDA, the
         plain step on the CPU), ``"plain"`` or ``"cuda"``.
     device: where the sweep runs (CUDA unless ``"cpu"`` is given).
     """
 
     meshes: Sequence[Mesh] = ("4x4_mc2",)
+    placements: Sequence[str] = ("edge",)
+    affinity: Sequence[str] = ("roundrobin",)
     transforms: Sequence[str] = ("O0", "O1", "O2")
     tiebreaks: Sequence[str] = ("pattern",)
     precisions: Sequence[str] = ("float32", "fixed8")
@@ -71,6 +90,8 @@ class SweepGrid:
     chunk: int = 2048
     max_cycles: int = 2_000_000
     baseline: str = "O0"
+    result_phase: bool = False
+    result_window: Optional[int] = None
     backend: str = "auto"
     device: Optional[str] = None
 
@@ -82,6 +103,18 @@ class SweepGrid:
         if unknown:
             raise ValueError(f"unknown precisions {sorted(unknown)}; "
                              f"supported: {sorted(_QUANTIZERS)}")
+        unknown = set(self.placements) - set(PLACEMENTS)
+        if unknown:
+            raise ValueError(f"unknown placements {sorted(unknown)}; "
+                             f"supported: {sorted(PLACEMENTS)}")
+        if not self.placements:
+            raise ValueError("need at least one MC placement")
+        unknown = set(self.affinity) - set(AFFINITIES)
+        if unknown:
+            raise ValueError(f"unknown affinity {sorted(unknown)}; "
+                             f"supported: {sorted(AFFINITIES)}")
+        if not self.affinity:
+            raise ValueError("need at least one packet->MC affinity")
         if self.baseline not in self.transforms:
             raise ValueError(
                 f"baseline {self.baseline!r} not in transforms {self.transforms}")
@@ -156,6 +189,37 @@ def _resolve_mesh(mesh: Mesh) -> tuple:
     return (mesh, mesh_by_name(mesh))
 
 
+def _place(cfg: NocConfig, placement: str) -> NocConfig:
+    """``edge`` keeps the resolved mc_nodes (named meshes already use the
+    boundary spread; a hand-built NocConfig's nodes stay); the other
+    strategies re-place the same MC count."""
+    if placement == "edge":
+        return cfg
+    return dataclasses.replace(
+        cfg, mc_nodes=mc_placement(cfg.rows, cfg.cols, cfg.num_mcs,
+                                   placement))
+
+
+def _concat_lanes(parts: Sequence[Traffic]) -> Traffic:
+    """Concatenate batched Traffics along the lane axis; ``num_packets`` is
+    the max (result-phase parts differ in packet count), -1 if any part's
+    is unknown."""
+    if len(parts) == 1:
+        return parts[0]
+    counts = [int(p.num_packets) for p in parts]
+    return Traffic(*(torch.cat([p[i] for p in parts]) for i in range(6)),
+                   num_packets=-1 if min(counts) < 0 else max(counts))
+
+
+def _node_rows(nodes_per_combo: Sequence[Sequence[int]], pad: int,
+               nv: int) -> np.ndarray:
+    """Per-lane injection nodes: each combo's nodes padded with router 0 to
+    ``pad`` streams, repeated for its ``nv`` variant lanes."""
+    return np.stack([np.asarray(tuple(nodes) + (0,) * (pad - len(nodes)),
+                                np.int32)
+                     for nodes in nodes_per_combo for _ in range(nv)])
+
+
 def drain_estimate(cfg: NocConfig, lengths: np.ndarray) -> float:
     """Lower-bound drain estimate: max(injection bound, hottest-link bound)."""
     lengths = np.asarray(lengths, float)[:cfg.num_mcs]
@@ -166,9 +230,18 @@ def drain_estimate(cfg: NocConfig, lengths: np.ndarray) -> float:
 
 def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
               check_conservation: bool = False, devices=None) -> SweepReport:
-    """Execute every cell of ``grid``: one packetization and ONE batched
-    drain per (mesh, model), one row per (mesh, model, precision, tiebreak,
-    transform), in the reference's row order and with its keys."""
+    """Execute every cell of ``grid``: one packetization per (mesh,
+    placement, affinity, model) combo and ONE batched request drain per
+    (mesh, model) over every combo's lanes; with ``grid.result_phase`` one
+    more batched drain of every combo's PE->MC result traffic. One row per
+    (mesh, placement, affinity, model, precision, tiebreak, transform), in
+    the reference's row order and with its keys.
+
+    Each stage runs in a ``torch.profiler`` span (``run_sweep/packetize``,
+    ``/drain``, ``/result_packetize``, ``/result_drain``), the device
+    synchronised before it ends: a profiler window over the call reads
+    each stage's device idle share; with no profiler the spans cost
+    nothing measurable."""
     if check_conservation:
         raise NotImplementedError(
             "check_conservation arrives with " + _LATER.format(6))
@@ -179,16 +252,20 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
     variants = [(by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
                 for prec, tb, tr in axes]
     streamed = grid.max_packets_per_layer is None
+    rw = (grid.result_window if grid.result_window is not None
+          else DEFAULT_RESULT_WINDOW)
     rows: List[dict] = []
     classes = []
-    pack_s = sim_s = 0.0
+    pack_s = sim_s = res_pack_s = res_s = 0.0
     pack_by_tr: Dict[str, float] = {}
-    stepped_cycles = 0
+    stepped_cycles = result_cycles = 0
     all_drained = True
     layer_cache: Dict[str, Sequence[LayerTraffic]] = {}
     ordered_cache: Dict[tuple, list] = {}
     payload_cache: Dict[tuple, list] = {}
     shape_cache: Dict[tuple, list] = {}
+    # Result values depend only on (model, variants): computed once.
+    rvalue_cache: Dict[str, list] = {}
     # Meshes of one size share traffic shapes: pad every member of a size
     # group to the group's MC-stream count and stream length, as the
     # reference does (padding streams are empty and never inject).
@@ -199,110 +276,207 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
         size_groups.setdefault(key, []).append(cfg)
     nv = len(variants)
 
-    for mesh_name, cfg in resolved:
+    def table(cfg, aff):
+        return affinity_mc_table(cfg) if aff == "nearest" else None
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for mesh_name, base_cfg in resolved:
         for model in grid.models:
             if model not in layer_cache:
                 layer_cache[model] = layers_for_model(model)
             layers = layer_cache[model]
 
             t0 = time.perf_counter()
-            pkey = (model, cfg.lanes)
-            if pkey not in shape_cache:
+            with record_function("run_sweep/packetize"):
+                pkey = (model, base_cfg.lanes)
+                if pkey not in shape_cache:
+                    if streamed:
+                        shape_cache[pkey] = payload_shapes(
+                            layers, base_cfg.lanes, variants,
+                            max_packets_per_layer=grid.max_packets_per_layer,
+                            device=dev)
+                    else:
+                        payload_cache[pkey] = cached_ordered_payloads(
+                            ordered_cache, model, layers, base_cfg.lanes,
+                            variants, axes,
+                            max_packets_per_layer=grid.max_packets_per_layer,
+                            timings=pack_by_tr, device=dev)
+                        shape_cache[pkey] = [(w.shape[1], w.shape[2])
+                                             for w in payload_cache[pkey]]
+                group = size_groups[(base_cfg.rows, base_cfg.cols,
+                                     base_cfg.num_vcs, base_cfg.vc_depth,
+                                     base_cfg.lanes)]
+                shapes = shape_cache[pkey]
+                npackets = sum(n for n, _ in shapes)
+                mc_pad = max(c.num_mcs for c in group)
+
+                # Every placement x affinity combo drains in ONE batched call:
+                # the combos share traffic shapes (padded below) and differ in
+                # their per-lane mc_nodes and per-MC stream split.
+                placed = [(pl, aff, _place(base_cfg, pl))
+                          for pl in grid.placements for aff in grid.affinity]
+                tables = [table(cfg, aff) for _, aff, cfg in placed]
+                lens = [stream_lengths(shapes, cfg.num_mcs, tbl)
+                        for (_, _, cfg), tbl in zip(placed, tables)]
+                # The common stream length covers every combo of every member
+                # of the size group.
+                t_pad = max(
+                    [int(ln.max()) for ln in lens]
+                    + [int(stream_lengths(shapes, gcfg.num_mcs,
+                                          table(gcfg, aff)).max())
+                       for c in group if c is not base_cfg
+                       for pl in grid.placements for aff in grid.affinity
+                       for gcfg in (_place(c, pl),)])
                 if streamed:
-                    shape_cache[pkey] = payload_shapes(
-                        layers, cfg.lanes, variants,
-                        max_packets_per_layer=grid.max_packets_per_layer,
-                        device=dev)
+                    # One ordering pass feeds every combo's assembler.
+                    combo_traffics = build_traffic_streamed_multi(
+                        layers, [cfg for _, _, cfg in placed], variants,
+                        chunk_packets=grid.stream_chunk_packets,
+                        num_streams=mc_pad, shapes=shapes, mc_tables=tables,
+                        device=dev, timings=pack_by_tr)
                 else:
-                    payload_cache[pkey] = cached_ordered_payloads(
-                        ordered_cache, model, layers, cfg.lanes, variants,
-                        axes, max_packets_per_layer=grid.max_packets_per_layer,
-                        timings=pack_by_tr, device=dev)
-                    shape_cache[pkey] = [(w.shape[1], w.shape[2])
-                                         for w in payload_cache[pkey]]
-            group = size_groups[(cfg.rows, cfg.cols, cfg.num_vcs,
-                                 cfg.vc_depth, cfg.lanes)]
-            shapes = shape_cache[pkey]
-            npackets = sum(n for n, _ in shapes)
-            mc_pad = max(c.num_mcs for c in group)
-            lens = stream_lengths(shapes, cfg.num_mcs)
-            t_pad = max(int(stream_lengths(shapes, c.num_mcs).max())
-                        for c in group)
-            if streamed:
-                traffic = build_traffic_streamed_multi(
-                    layers, [cfg], variants,
-                    chunk_packets=grid.stream_chunk_packets,
-                    num_streams=mc_pad, shapes=shapes, device=dev,
-                    timings=pack_by_tr)[0]
-            else:
-                traffic = assemble_traffic(payload_cache[pkey], cfg,
-                                           num_streams=mc_pad,
-                                           num_variants=nv, device=dev)
-            traffic = pad_traffic_length(traffic, t_pad)
-            mc_rows = np.broadcast_to(
-                np.asarray(tuple(cfg.mc_nodes) + (0,) * (mc_pad - cfg.num_mcs),
-                           np.int32), (nv, mc_pad))
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                    combo_traffics = [
+                        assemble_traffic(payload_cache[pkey], cfg,
+                                         num_streams=mc_pad, num_variants=nv,
+                                         device=dev, mc_table=tbl)
+                        for (_, _, cfg), tbl in zip(placed, tables)]
+                traffic = _concat_lanes([pad_traffic_length(t, t_pad)
+                                         for t in combo_traffics])
+                del combo_traffics
+                mc_rows = _node_rows([cfg.mc_nodes for _, _, cfg in placed],
+                                     mc_pad, nv)
+                sync()
             t1 = time.perf_counter()
-            results: List[SimResult] = simulate_batch(
-                cfg, traffic, mc_nodes=mc_rows,
-                count_headers=grid.count_headers, chunk=grid.chunk,
-                max_cycles=grid.max_cycles, backend=grid.backend, device=dev)
+            with record_function("run_sweep/drain"):
+                results: List[SimResult] = simulate_batch(
+                    base_cfg, traffic, mc_nodes=mc_rows,
+                    count_headers=grid.count_headers, chunk=grid.chunk,
+                    max_cycles=grid.max_cycles, backend=grid.backend,
+                    device=dev)
             t2 = time.perf_counter()
+            del traffic
+
+            # Result phase: one PE->MC drain covering every combo's lanes.
+            # Streams inject at the PEs (per-lane mc_nodes = pe_nodes, padded
+            # with router 0 to the size group's PE count) and eject at the
+            # MCs.
+            rres: Optional[List[SimResult]] = None
+            t2b = t2
+            if grid.result_phase:
+                with record_function("run_sweep/result_packetize"):
+                    if model not in rvalue_cache:
+                        rvalue_cache[model] = result_values(
+                            layers, variants,
+                            max_packets_per_layer=grid.max_packets_per_layer,
+                            device=dev)
+                    pe_pad = max(c.num_routers - c.num_mcs for c in group)
+                    rparts = [build_result_traffic(
+                        layers, cfg, variants,
+                        max_packets_per_layer=grid.max_packets_per_layer,
+                        mc_table=tbl, result_window=grid.result_window,
+                        num_streams=pe_pad, values=rvalue_cache[model],
+                        device=dev)
+                        for (_, _, cfg), tbl in zip(placed, tables)]
+                    rt_pad = max(int(p.words.shape[-2]) for p in rparts)
+                    rtraffic = _concat_lanes([pad_traffic_length(p, rt_pad)
+                                              for p in rparts])
+                    del rparts
+                    pe_rows = _node_rows(
+                        [cfg.pe_nodes for _, _, cfg in placed], pe_pad, nv)
+                    sync()
+                t2b = time.perf_counter()
+                with record_function("run_sweep/result_drain"):
+                    rres = simulate_batch(
+                        base_cfg, rtraffic, mc_nodes=pe_rows,
+                        count_headers=grid.count_headers, chunk=grid.chunk,
+                        max_cycles=grid.max_cycles, backend=grid.backend,
+                        device=dev)
+                del rtraffic
+            t3 = time.perf_counter()
 
             pack_s += t1 - t0
             sim_s += t2 - t1
-            all_drained &= all(r.ejected == r.injected for r in results)
+            res_pack_s += t2b - t2
+            res_s += t3 - t2b
+            all_drained &= all(r.ejected == r.injected
+                               for r in results + (rres or []))
             class_cycles = sum(r.cycles for r in results)
             stepped_cycles += class_cycles
-            classes.append({
-                "mesh": mesh_name, "placements": ["edge"],
-                "affinity": ["roundrobin"], "model": model,
+            entry = {
+                "mesh": mesh_name, "placements": list(grid.placements),
+                "affinity": list(grid.affinity), "model": model,
                 "compression": "none", "variants": len(results),
                 "packetize_s": round(t1 - t0, 4),
                 "simulate_s": round(t2 - t1, 4),
                 "cycles_per_sec": round(class_cycles / (t2 - t1), 1)
                 if t2 > t1 else None,
-                "drain_estimate": drain_estimate(cfg, lens),
-            })
+                "drain_estimate": [drain_estimate(cfg, ln)
+                                   for (_, _, cfg), ln in zip(placed, lens)],
+            }
+            if rres is not None:
+                rc = sum(r.cycles for r in rres)
+                result_cycles += rc
+                entry["result_packetize_s"] = round(t2b - t2, 4)
+                entry["result_simulate_s"] = round(t3 - t2b, 4)
+                entry["result_cycles_per_sec"] = (
+                    round(rc / (t3 - t2b), 1) if t3 > t2b else None)
+            classes.append(entry)
 
-            mean_hops = packet_mean_hops(cfg, npackets)
-            base_bt = {(prec, tb): res.total_bt
-                       for (prec, tb, tr), res in zip(axes, results)
-                       if tr == grid.baseline}
-            for (prec, tb, tr), (transform, _), res in zip(axes, variants,
-                                                           results):
-                overhead = recovery_overhead_bits(
-                    layers, transform,
-                    max_packets_per_layer=grid.max_packets_per_layer)
-                # Each recovery-index bit costs half a transition (the
-                # toggle expectation of an uninformative bit stream).
-                adjusted_bt = res.total_bt + overhead // 2
-                base = base_bt[(prec, tb)]
-                rows.append({
-                    "mesh": mesh_name, "placement": "edge",
-                    "affinity": "roundrobin", "model": model,
-                    "precision": prec, "transform": tr, "tiebreak": tb,
-                    "compression": "none",
-                    "total_bt": res.total_bt,
-                    "adjusted_bt": adjusted_bt,
-                    "overhead_bits": overhead,
-                    "compression_overhead_bits": 0,
-                    "cycles": res.drain_cycle,
-                    "flits": res.injected,
-                    "bt_per_flit": res.bt_per_flit,
-                    "mean_hops": mean_hops,
-                    "reduction_pct": (1 - res.total_bt / base) * 100,
-                    "adjusted_reduction_pct": (1 - adjusted_bt / base) * 100,
-                    "result_bt": None,
-                    "result_cycles": None,
-                    "result_flits": None,
-                    "result_overhead_bits": None,
-                    "result_compression_overhead_bits": None,
-                    "result_adjusted_bt": None,
-                    "result_adjusted_reduction_pct": None,
-                })
+            for pi, (placement, aff, cfg) in enumerate(placed):
+                cell = results[pi * nv:(pi + 1) * nv]
+                rcell = rres[pi * nv:(pi + 1) * nv] if rres else [None] * nv
+                mean_hops = packet_mean_hops(cfg, npackets, tables[pi])
+                base_bt = {}
+                base_rbt = {}
+                for (prec, tb, tr), res, rr in zip(axes, cell, rcell):
+                    if tr == grid.baseline:
+                        base_bt[(prec, tb)] = res.total_bt
+                        base_rbt[(prec, tb)] = rr.total_bt if rr else None
+                for (prec, tb, tr), (transform, _), res, rr in zip(
+                        axes, variants, cell, rcell):
+                    overhead = recovery_overhead_bits(
+                        layers, transform,
+                        max_packets_per_layer=grid.max_packets_per_layer)
+                    # Each recovery-index bit costs half a transition (the
+                    # toggle expectation of an uninformative bit stream).
+                    adjusted_bt = res.total_bt + overhead // 2
+                    base = base_bt[(prec, tb)]
+                    if rr:
+                        # The result phase is a single stream: any
+                        # non-identity reorder (O1 included) owes a window
+                        # index per value, one value per request packet.
+                        roverhead = (npackets
+                                     * transform.overhead_bits_per_value(
+                                         min(rw, npackets), paired=False))
+                        radj = rr.total_bt + roverhead // 2
+                        rbase = base_rbt[(prec, tb)]
+                    rows.append({
+                        "mesh": mesh_name, "placement": placement,
+                        "affinity": aff, "model": model,
+                        "precision": prec, "transform": tr, "tiebreak": tb,
+                        "compression": "none",
+                        "total_bt": res.total_bt,
+                        "adjusted_bt": adjusted_bt,
+                        "overhead_bits": overhead,
+                        "compression_overhead_bits": 0,
+                        "cycles": res.drain_cycle,
+                        "flits": res.injected,
+                        "bt_per_flit": res.bt_per_flit,
+                        "mean_hops": mean_hops,
+                        "reduction_pct": (1 - res.total_bt / base) * 100,
+                        "adjusted_reduction_pct": (1 - adjusted_bt / base) * 100,
+                        "result_bt": rr.total_bt if rr else None,
+                        "result_cycles": rr.drain_cycle if rr else None,
+                        "result_flits": rr.injected if rr else None,
+                        "result_overhead_bits": roverhead if rr else None,
+                        "result_compression_overhead_bits": 0 if rr else None,
+                        "result_adjusted_bt": radj if rr else None,
+                        "result_adjusted_reduction_pct": (
+                            (1 - radj / rbase) * 100 if rr else None),
+                    })
 
     stats = {
         "cells": len(rows),
@@ -311,13 +485,19 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
         "packetize_by_transform": {k: round(v, 4)
                                    for k, v in sorted(pack_by_tr.items())},
         "simulate_s": round(sim_s, 4),
-        "wall_s": round(pack_s + sim_s, 4),
+        "wall_s": round(pack_s + sim_s + res_pack_s + res_s, 4),
         "stepped_cycles": stepped_cycles,
         "cycles_per_sec": round(stepped_cycles / sim_s, 1) if sim_s else None,
         "streamed": streamed,
         "devices": 1,
-        "result_phase": False,
+        "result_phase": grid.result_phase,
         "device": str(dev),
         "ejected_equals_injected": all_drained,
     }
+    if grid.result_phase:
+        stats["result_packetize_s"] = round(res_pack_s, 4)
+        stats["result_simulate_s"] = round(res_s, 4)
+        stats["result_cycles"] = result_cycles
+        stats["result_cycles_per_sec"] = (
+            round(result_cycles / res_s, 1) if res_s else None)
     return SweepReport(rows=rows, stats=stats)

@@ -8,23 +8,24 @@ Port numbering (inputs and outputs symmetric):
     0=N  1=E  2=S  3=W  4=Local (input side: injection from the MC/PE NI;
                                  output side: ejection to the PE)
 
-Fault routing, the packet->MC affinity tables and the corner/interleaved
-MC placements belong to later slices of the port (ROADMAP queue A, items 9
-and 13).
+MC placements (``edge``/``corner``/``interleaved``) and the packet->MC
+affinity tables are the reference's, copied. Fault routing belongs to a
+later slice of the port (ROADMAP queue A, item 13).
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["NocConfig", "PORT_N", "PORT_E", "PORT_S", "PORT_W", "PORT_LOCAL",
            "NUM_PORTS", "OPPOSITE", "xy_route", "neighbor_table", "PAPER_NOCS",
-           "PLACEMENTS", "mc_placement", "make_noc", "mesh_by_name",
-           "mean_hop_counts", "xy_link_loads", "packet_mean_hops"]
+           "PLACEMENTS", "AFFINITIES", "mc_placement", "make_noc",
+           "mesh_by_name", "mean_hop_counts", "xy_link_loads",
+           "affinity_mc_table", "packet_mean_hops"]
 
 PORT_N, PORT_E, PORT_S, PORT_W, PORT_LOCAL = 0, 1, 2, 3, 4
 NUM_PORTS = 5
@@ -125,27 +126,55 @@ def _edge_spread(rows: int, cols: int, n: int) -> Tuple[int, ...]:
     return tuple(r * cols + c for r, c in picks)
 
 
-PLACEMENTS = ("edge",)
+def _corner_spread(rows: int, cols: int, n: int) -> Tuple[int, ...]:
+    """Corners first (diagonal-opposite pairs), then evenly along the rest
+    of the boundary. n=2 gives the two opposite corners, which on square
+    meshes is the evenly spaced edge spread."""
+    corners = [(0, 0), (rows - 1, cols - 1), (0, cols - 1), (rows - 1, 0)]
+    picks = list(dict.fromkeys(corners))[:n]
+    need = n - len(picks)
+    if need > 0:
+        rest = [b for b in _border(rows, cols) if b not in set(picks)]
+        step = len(rest) / need
+        picks += [rest[int(i * step)] for i in range(need)]
+    return tuple(r * cols + c for r, c in picks)
+
+
+def _interleave_spread(rows: int, cols: int, n: int) -> Tuple[int, ...]:
+    """MCs evenly spaced through the row-major node list, ``int(i * nr /
+    n)``. As in the reference, on every paper mesh and on 16x16_mc16 this
+    puts all the MCs in column 0, not in the interior."""
+    nr = rows * cols
+    return tuple(int(i * nr / n) for i in range(n))
+
+
+PLACEMENTS = ("edge", "corner", "interleaved")
+_PLACEMENT_FNS = {
+    "edge": _edge_spread,
+    "corner": _corner_spread,
+    "interleaved": _interleave_spread,
+}
 
 
 def mc_placement(rows: int, cols: int, num_mcs: int,
                  strategy: str = "edge") -> Tuple[int, ...]:
-    """Router ids hosting the memory controllers: ``edge`` spreads them
-    evenly along the mesh boundary (the paper's layout). The reference's
-    ``corner`` and ``interleaved`` strategies arrive with the placement
-    slice of the port (ROADMAP queue A, item 9)."""
-    if strategy != "edge":
-        raise NotImplementedError(
-            f"MC placement {strategy!r} arrives with a later slice of the "
-            "port (ROADMAP queue A, item 9); supported: ('edge',)")
+    """Router ids hosting the memory controllers under a placement strategy:
+    ``edge`` (evenly along the boundary, the paper's layout), ``corner``
+    (corners first, then evenly along the rest of the boundary) or
+    ``interleaved`` (evenly through the row-major node list; may place
+    more MCs than the boundary holds). Deterministic, distinct nodes, at
+    least one PE router left."""
+    if strategy not in _PLACEMENT_FNS:
+        raise KeyError(f"unknown MC placement {strategy!r}; "
+                       f"supported: {sorted(_PLACEMENT_FNS)}")
     if num_mcs >= rows * cols:
         raise ValueError(f"{num_mcs} MCs on a {rows}x{cols} mesh leave no "
                          "PE routers to receive traffic")
     boundary = rows * cols - max(rows - 2, 0) * max(cols - 2, 0)
-    if num_mcs < 1 or num_mcs > boundary:
+    if num_mcs < 1 or (strategy != "interleaved" and num_mcs > boundary):
         raise ValueError(f"cannot place {num_mcs} MCs on a "
                          f"{rows}x{cols} mesh boundary ({boundary} routers)")
-    return _edge_spread(rows, cols, num_mcs)
+    return _PLACEMENT_FNS[strategy](rows, cols, num_mcs)
 
 
 def mean_hop_counts(cfg: NocConfig) -> np.ndarray:
@@ -159,17 +188,53 @@ def mean_hop_counts(cfg: NocConfig) -> np.ndarray:
     return out
 
 
-def packet_mean_hops(cfg: NocConfig, num_packets: int) -> float:
+# Packet->MC affinity: "roundrobin" deals packet g to MC g % M (the
+# paper's); "nearest" serves each PE's packets from its hop-minimising MC.
+AFFINITIES = ("roundrobin", "nearest")
+
+
+def affinity_mc_table(cfg: NocConfig) -> np.ndarray:
+    """Per-PE serving MC minimising the X-Y hop count: ``table[i]`` is the
+    MC stream index (position in ``cfg.mc_nodes``) serving every packet
+    destined for ``cfg.pe_nodes[i]``. Ties go to the MC with the fewest PEs
+    assigned so far (greedy over PEs in node order), then to the lower
+    index. Packet g goes to PE ``g % num_pes``, so its MC is
+    ``table[g % num_pes]``."""
+    pes = np.asarray(cfg.pe_nodes, np.int64)
+    mcs = np.asarray(cfg.mc_nodes, np.int64)
+    if not mcs.size:
+        raise ValueError("config has no memory controllers")
+    pr, pc = pes // cfg.cols, pes % cfg.cols
+    mr, mc = mcs // cfg.cols, mcs % cfg.cols
+    hops = (np.abs(pr[:, None] - mr[None, :])
+            + np.abs(pc[:, None] - mc[None, :]))        # (num_pes, M)
+    table = np.zeros(len(pes), np.int64)
+    load = np.zeros(len(mcs), np.int64)
+    for i in range(len(pes)):
+        best = np.flatnonzero(hops[i] == hops[i].min())
+        table[i] = best[np.argmin(load[best])]          # argmin: first tie
+        load[table[i]] += 1
+    return table
+
+
+def packet_mean_hops(cfg: NocConfig, num_packets: int,
+                     mc_table: Optional[np.ndarray] = None) -> float:
     """Exact mean MC<->PE Manhattan hop count over the first ``num_packets``
-    packets of the round-robin deal (packet g computes at PE
-    ``g % num_pes``, served by MC ``g % num_mcs``)."""
+    packets: packet g computes at PE ``g % num_pes`` and is served by MC
+    ``mc_table[g % len(mc_table)]`` (any periodic table) or ``g % num_mcs``
+    (round-robin, the default). The request and result phases both travel
+    this distance."""
     if num_packets <= 0:
         return 0.0
     pes = np.asarray(cfg.pe_nodes, np.int64)
     mcs = np.asarray(cfg.mc_nodes, np.int64)
     g = np.arange(num_packets, dtype=np.int64)
     pe = pes[g % len(pes)]
-    mc = mcs[g % len(mcs)]
+    if mc_table is not None:
+        tbl = np.asarray(mc_table, np.int64)
+        mc = mcs[tbl[g % len(tbl)]]
+    else:
+        mc = mcs[g % len(mcs)]
     hops = (np.abs(pe // cfg.cols - mc // cfg.cols)
             + np.abs(pe % cfg.cols - mc % cfg.cols))
     return float(hops.mean())
@@ -210,7 +275,7 @@ PAPER_NOCS = {
 
 def make_noc(rows: int, cols: int, num_mcs: int, placement: str = "edge",
              **kw) -> NocConfig:
-    """Any mesh size under any MC placement strategy."""
+    """Any mesh size under any MC placement strategy (:data:`PLACEMENTS`)."""
     return NocConfig(rows, cols, mc_placement(rows, cols, num_mcs, placement),
                      **kw)
 

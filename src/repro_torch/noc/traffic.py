@@ -12,8 +12,12 @@ closed-form MC/PE/VC round-robin of the global packet id, headers, META
 bitfields, stream offsets - is host-side numpy, as in the reference, and
 the payload scatter into the per-MC streams runs on the device.
 
-The result phase, affinity tables as a sweep axis and MSR compression
-arrive with later slices (ROADMAP queue A, items 9 and 11).
+Packets are dealt over the MCs round-robin or by a periodic packet->MC
+affinity table (``_McSchedule``). The PE->MC result phase
+(:func:`build_result_traffic`) packetizes one MAC value per request
+packet, grouped into per-(PE, MC) result windows and ordered by the same
+WireTransforms (``order_single``). MSR compression arrives with a later
+slice (ROADMAP queue A, item 11).
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ __all__ = ["LayerTraffic", "build_traffic", "build_traffic_batch",
            "ordered_payloads", "ordered_payloads_streamed", "payload_shapes",
            "assemble_traffic", "TrafficAssembler", "stream_lengths",
            "pad_traffic_length", "stack_traffics", "conv_layer_traffic",
-           "linear_layer_traffic"]
+           "linear_layer_traffic", "build_result_traffic", "layer_results",
+           "result_values", "DEFAULT_RESULT_WINDOW"]
 
 # One sweep variant: an ordering transform plus an optional value->wire-dtype
 # quantizer (None transmits raw float32 words).
@@ -242,30 +247,51 @@ def ordered_payloads_streamed(
 
 
 class _McSchedule:
-    """Closed-form packet->MC schedule, elementwise in the global packet id:
-    packet g is served by MC ``g % M``. (The reference also takes a periodic
-    affinity table here; that arrives with the affinity slice.)"""
+    """Closed-form packet->MC schedule, elementwise in the global packet id.
 
-    def __init__(self, m: int):
-        self.m = m
+    ``mc_table=None`` is the round-robin deal (``mc(g) = g % M``); an
+    explicit table is Q-periodic: ``mc(g) = table[g % Q]`` (the affinity
+    path uses ``Q = num_pes``, ``topology.affinity_mc_table``). The serving
+    MC and the number of earlier packets at that MC (which fixes the VC and
+    the stream offset) stay elementwise in ``g``, so a layer may arrive in
+    any number of chunks.
+    """
+
+    def __init__(self, m: int, mc_table=None):
+        if mc_table is None:
+            tbl = np.arange(m, dtype=np.int64)
+        else:
+            tbl = np.asarray(mc_table, np.int64)
+            if tbl.ndim != 1 or not tbl.size:
+                raise ValueError("mc_table must be a non-empty 1-D array")
+            if tbl.min() < 0 or tbl.max() >= m:
+                raise ValueError(
+                    f"mc_table entries must be MC stream indices in [0, {m})")
+        self.m, self.q, self.tbl = m, len(tbl), tbl
+        self.cnt = np.bincount(tbl, minlength=m).astype(np.int64)
+        onehot = np.zeros((len(tbl) + 1, m), np.int64)
+        onehot[np.arange(1, len(tbl) + 1), tbl] = 1
+        self.cum = np.cumsum(onehot, axis=0)                 # (Q+1, M)
 
     def mc(self, g):
         """Serving-MC stream index of packet(s) ``g``."""
-        return g % self.m
+        return self.tbl[g % self.q]
 
     def before(self, g):
         """``#{g' < g : mc(g') == mc(g)}`` - earlier packets at g's MC."""
-        return g // self.m
+        mc = self.tbl[g % self.q]
+        return (g // self.q) * self.cnt[mc] + self.cum[g % self.q, mc]
 
     def counts_before(self, g: int) -> np.ndarray:
         """Per-MC packet counts over ``[0, g)`` - an ``(M,)`` vector."""
-        return g // self.m + (np.arange(self.m) < g % self.m)
+        return (g // self.q) * self.cnt + self.cum[g % self.q]
 
 
 def stream_lengths(layer_shapes: Sequence[Tuple[int, int]],
-                   m: int) -> np.ndarray:
-    """Per-MC flit counts for layers of ``(n_packets, payload_flits)``."""
-    sched = _McSchedule(m)
+                   m: int, mc_table=None) -> np.ndarray:
+    """Per-MC flit counts for layers of ``(n_packets, payload_flits)``,
+    packets dealt round-robin or by the periodic ``mc_table``."""
+    sched = _McSchedule(m, mc_table)
     lengths = np.zeros(m, np.int64)
     g0 = 0
     for n, fpay in layer_shapes:
@@ -305,15 +331,18 @@ class TrafficAssembler:
     """Incremental per-MC stream writer, shared by the one-shot and streamed
     paths (bit-identical by construction).
 
-    With global packet id g: ``mc(g) = g % M``, ``dest(g) = pes[g %
-    num_pes]``, ``vc(g) = (g // M) % V``, and a packet's flit offset in its
-    MC stream is the running flit count of earlier packets at that MC - all
-    elementwise in g, so a layer may arrive in any number of chunks.
+    With global packet id g: ``mc(g) = g % M`` (or the affinity
+    ``mc_table`` lookup), ``dest(g) = pes[g % num_pes]``, ``vc(g) =
+    before(g) % V`` (earlier packets at g's MC), and a packet's flit offset
+    in its MC stream is the running flit count of earlier packets at that
+    MC - all elementwise in g, so a layer may arrive in any number of
+    chunks.
     """
 
     def __init__(self, layer_shapes: Sequence[Tuple[int, int]],
                  cfg: NocConfig, num_streams: Optional[int] = None,
-                 num_variants: int = 1, device: DeviceLike = None):
+                 num_variants: int = 1, device: DeviceLike = None,
+                 mc_table=None):
         m, lanes = cfg.num_mcs, cfg.lanes
         if num_streams is not None and num_streams < m:
             raise ValueError(
@@ -324,7 +353,7 @@ class TrafficAssembler:
         self.num_streams = num_streams
         self.shapes = [(int(n), int(f)) for n, f in layer_shapes]
         self.pes = np.asarray(cfg.pe_nodes, np.int64)
-        self.sched = _McSchedule(m)
+        self.sched = _McSchedule(m, mc_table)
         ns = [n for n, _ in self.shapes]
         self.layer_g0 = np.concatenate([[0], np.cumsum(ns)]).astype(np.int64)
         self.layer_cb = [self.sched.counts_before(int(g0))
@@ -421,8 +450,9 @@ class TrafficAssembler:
 def assemble_traffic(layer_words: Sequence[torch.Tensor], cfg: NocConfig,
                      num_streams: Optional[int] = None,
                      num_variants: Optional[int] = None,
-                     device: DeviceLike = None) -> Traffic:
-    """Scatter per-layer (B, n, F, L) payloads into batched per-MC streams."""
+                     device: DeviceLike = None, mc_table=None) -> Traffic:
+    """Scatter per-layer (B, n, F, L) payloads into batched per-MC streams
+    (``mc_table``: the optional periodic packet->MC affinity table)."""
     nv = layer_words[0].shape[0] if layer_words else (num_variants or 1)
     for words_v in layer_words:
         if words_v.shape[3] != cfg.lanes:
@@ -430,7 +460,7 @@ def assemble_traffic(layer_words: Sequence[torch.Tensor], cfg: NocConfig,
                              f"config has {cfg.lanes}")
     asm = TrafficAssembler([(w.shape[1], w.shape[2]) for w in layer_words],
                            cfg, num_streams=num_streams, num_variants=nv,
-                           device=device)
+                           device=device, mc_table=mc_table)
     for li, words_v in enumerate(layer_words):
         asm.add_chunk(li, 0, words_v)
     return asm.finish()
@@ -445,24 +475,32 @@ def build_traffic_streamed_multi(
     num_streams: Optional[int] = None,
     max_packets_per_layer: Optional[int] = None,
     shapes: Optional[Sequence[Tuple[int, int]]] = None,
+    mc_tables: Optional[Sequence] = None,
     device: DeviceLike = None,
     timings: Optional[Dict[str, float]] = None,
 ) -> List[Traffic]:
-    """Streamed packetization for several configs of one lane width at once:
-    each chunk is ordered once and scattered into every config's streams
-    (``timings``: see :func:`ordered_payloads_streamed`)."""
+    """Streamed packetization for several (config, mc_table) combos of one
+    lane width at once: each chunk is ordered once and scattered into every
+    combo's streams; element i equals ``build_traffic_streamed(layers,
+    cfgs[i], ..., mc_table=mc_tables[i])`` (``timings``: see
+    :func:`ordered_payloads_streamed`)."""
     if not cfgs:
         raise ValueError("need at least one config")
     if len({c.lanes for c in cfgs}) != 1:
         raise ValueError("streamed combos must share the flit lane width")
+    if mc_tables is None:
+        mc_tables = [None] * len(cfgs)
+    if len(mc_tables) != len(cfgs):
+        raise ValueError("mc_tables must match cfgs")
     dev = resolve_device(device)
     if shapes is None:
         shapes = payload_shapes(layers, cfgs[0].lanes, variants,
                                 max_packets_per_layer=max_packets_per_layer,
                                 device=dev)
     asms = [TrafficAssembler(shapes, cfg, num_streams=num_streams,
-                             num_variants=len(variants), device=dev)
-            for cfg in cfgs]
+                             num_variants=len(variants), device=dev,
+                             mc_table=tbl)
+            for cfg, tbl in zip(cfgs, mc_tables)]
     for li, start, words in ordered_payloads_streamed(
             layers, cfgs[0].lanes, variants, chunk_packets=chunk_packets,
             max_packets_per_layer=max_packets_per_layer, device=dev,
@@ -481,6 +519,7 @@ def build_traffic_streamed(
     num_streams: Optional[int] = None,
     max_packets_per_layer: Optional[int] = None,
     shapes: Optional[Sequence[Tuple[int, int]]] = None,
+    mc_table=None,
     device: DeviceLike = None,
 ) -> Traffic:
     """Packetize full layers in fixed-size packet chunks; equal to
@@ -488,7 +527,7 @@ def build_traffic_streamed(
     return build_traffic_streamed_multi(
         layers, [cfg], variants, chunk_packets=chunk_packets,
         num_streams=num_streams, max_packets_per_layer=max_packets_per_layer,
-        shapes=shapes, device=device)[0]
+        shapes=shapes, mc_tables=[mc_table], device=device)[0]
 
 
 def build_traffic_batch(
@@ -497,16 +536,18 @@ def build_traffic_batch(
     variants: Sequence[Variant],
     *,
     max_packets_per_layer: Optional[int] = None,
+    mc_table=None,
     device: DeviceLike = None,
 ) -> Traffic:
     """Packetize ``layers`` once per (transform, quantizer) variant into a
-    batched Traffic with a leading variants axis."""
+    batched Traffic with a leading variants axis (``mc_table``: the
+    optional periodic packet->MC affinity table)."""
     dev = resolve_device(device)
     payloads = ordered_payloads(layers, cfg.lanes, variants,
                                 max_packets_per_layer=max_packets_per_layer,
                                 device=dev)
     return assemble_traffic(payloads, cfg, num_variants=len(variants),
-                            device=dev)
+                            device=dev, mc_table=mc_table)
 
 
 def build_traffic(
@@ -523,3 +564,224 @@ def build_traffic(
                                 max_packets_per_layer=max_packets_per_layer,
                                 device=device)
     return batch.variant(0)
+
+
+# --- result phase: PE -> MC ejection traffic -------------------------------
+
+# Result values per result packet (the result ordering window): four payload
+# flits at the paper's 16-lane links.
+DEFAULT_RESULT_WINDOW = 64
+
+
+def _num_packets(layer: LayerTraffic, max_packets: Optional[int]) -> int:
+    """Packets of ``layer`` after :func:`_subsample` (without moving it)."""
+    n = int(layer.inputs.shape[0])
+    return n if max_packets is None else min(n, max_packets)
+
+
+def layer_results(layer: LayerTraffic, max_packets: Optional[int] = None,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """Per-neuron result values of one layer, ``result(g) = sum_k
+    inputs[g, k] * weights[g, k]`` in float32: the value PE ``dest(g)``
+    returns for request packet ``g``, on the request phase's subsample.
+
+    The sum runs in PyTorch's order, not XLA's, so a value may differ from
+    the reference's in its last bits (ROADMAP C11)."""
+    inp, wgt = _subsample(layer, max_packets, resolve_device(device))
+    return (inp.to(torch.float32) * wgt.to(torch.float32)).sum(dim=1)
+
+
+def result_values(layers: Sequence[LayerTraffic], variants: Sequence[Variant],
+                  max_packets_per_layer: Optional[int] = None,
+                  device: DeviceLike = None) -> List[List[torch.Tensor]]:
+    """Per-layer, per-variant result values (each variant's quantizer on
+    :func:`layer_results`): the ``values`` of :func:`build_result_traffic`,
+    shared by every mesh, placement and affinity of a sweep."""
+    dev = resolve_device(device)
+    out: List[List[torch.Tensor]] = []
+    for layer in layers:
+        res = layer_results(layer, max_packets_per_layer, dev)
+        out.append([res if q is None else q(res) for _, q in variants])
+    return out
+
+
+def _result_words(transform: WireTransform, windows: torch.Tensor,
+                  lanes: int) -> torch.Tensor:
+    """(n, w) result windows -> (n, ceil(w / lanes), lanes) int32 words;
+    row i is ``transform.apply_single(windows[i], lanes).words``."""
+    vals = transform.order_single_packets(windows, lanes)
+    n, k = vals.shape
+    nf = -(-k // lanes)
+    return F.pad(words32(vals), (0, nf * lanes - k)).reshape(n, nf, lanes)
+
+
+def build_result_traffic(
+    layers: Sequence[LayerTraffic],
+    cfg: NocConfig,
+    variants: Sequence[Variant],
+    *,
+    max_packets_per_layer: Optional[int] = None,
+    mc_table=None,
+    result_window: Optional[int] = None,
+    num_streams: Optional[int] = None,
+    values: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    compression: str = "none",
+    device: DeviceLike = None,
+) -> Traffic:
+    """Packetize the result phase: per-PE injection streams of PE->MC
+    result packets, as a batched Traffic (leading variants axis).
+
+    Request packet ``g`` computes at PE ``pes[g % num_pes]`` with operands
+    from MC ``mc(g)`` (round-robin or the affinity ``mc_table``); its one
+    result value returns along the opposite path. Stream ``i`` injects at
+    ``cfg.pe_nodes[i]``; a result packet groups up to ``result_window``
+    consecutive results of one (PE, MC) pair within one layer, ordered by
+    each variant's transform (``order_single``) and narrowed by its
+    quantizer. Assembly is the reference's: (PE, MC, window) grouping by a
+    stable argsort, the VC from the stream's packet count, header words,
+    streams padded to ``num_streams``. ``values``: precomputed
+    :func:`result_values`. Drain it with ``mc_nodes`` = the PE nodes
+    (padding streams at router 0).
+    """
+    if not variants:
+        raise ValueError("need at least one (transform, quantizer) variant")
+    if compression == "msr":
+        raise NotImplementedError(
+            "compression='msr' on the result phase arrives with a later "
+            "slice of the port (ROADMAP queue A, item 11)")
+    if compression != "none":
+        raise ValueError(f"unknown compression {compression!r}; "
+                         "supported: ('none', 'msr')")
+    dev = resolve_device(device)
+    m, lanes, nv = cfg.num_mcs, cfg.lanes, len(variants)
+    pes = np.asarray(cfg.pe_nodes, np.int64)
+    p = len(pes)
+    if num_streams is not None and num_streams < p:
+        raise ValueError(f"cannot pad {p} PE streams down to {num_streams}")
+    w = DEFAULT_RESULT_WINDOW if result_window is None else int(result_window)
+    if w < 1:
+        raise ValueError(f"result_window must be >= 1, got {w}")
+    sched = _McSchedule(m, mc_table)
+    mcs_nodes = np.asarray(cfg.mc_nodes, np.int64)
+    fw = -(-w // lanes)
+
+    # Per-stream running flit / packet counters carry the state between
+    # layers; each layer is one flat (stream row, flit col) scatter.
+    stream_len = np.zeros(p, np.int64)
+    stream_pkts = np.zeros(p, np.int64)
+    scatters = []
+    pkt_id = 0
+    g0 = 0
+    for li, layer in enumerate(layers):
+        n = _num_packets(layer, max_packets_per_layer)
+        if n == 0:
+            continue
+        if values is not None:
+            vals = values[li]
+        else:
+            res = layer_results(layer, max_packets_per_layer, dev)
+            vals = [res if q is None else q(res) for _, q in variants]
+
+        gids = g0 + np.arange(n, dtype=np.int64)
+        g0 += n
+        src = gids % p                               # PE stream index
+        key = src * m + sched.mc(gids)
+        order = np.argsort(key, kind="stable")       # group-major, g-order
+        uniq, start, counts = np.unique(key[order], return_index=True,
+                                        return_counts=True)
+        grp = np.repeat(np.arange(len(uniq)), counts)
+        rank = np.arange(n) - np.repeat(start, counts)
+        pkts_per_grp = -(-counts // w)
+        pkt_base = np.concatenate([[0], np.cumsum(pkts_per_grp)])
+        slot = torch.as_tensor((pkt_base[grp] + rank // w) * w + rank % w,
+                               device=dev)
+        order_t = torch.as_tensor(order, device=dev)
+        npkt = int(pkt_base[-1])
+
+        # One uniform-window ordering per variant; the padding zeros sort to
+        # (or stay in) the tail flits, so cutting each packet to its real
+        # flit count is exact.
+        words_v = []
+        for (tr, _), v in zip(variants, vals):
+            v = v.to(dev)
+            windows = torch.zeros(npkt * w, dtype=v.dtype, device=dev)
+            windows[slot] = v[order_t]
+            words_v.append(_result_words(tr, windows.reshape(npkt, w), lanes))
+        shapes = {tuple(x.shape) for x in words_v}
+        if shapes != {(npkt, fw, lanes)}:
+            raise ValueError(
+                f"variants disagree on result flit geometry: {sorted(shapes)}")
+        words_v = torch.stack(words_v)               # (nv, npkt, fw, L)
+
+        # Per-packet skeleton, in (pe, mc, window) order = stream order.
+        pk_grp = np.repeat(np.arange(len(uniq)), pkts_per_grp)
+        pk_src = uniq[pk_grp] // m
+        pk_mc = uniq[pk_grp] % m
+        pk_idx = np.arange(npkt) - pkt_base[pk_grp]  # window index in group
+        pk_c = np.minimum(counts[pk_grp] - pk_idx * w, w)
+        pk_fpay = (-(-pk_c // lanes)).astype(np.int64)
+        f_tot = pk_fpay + 1                          # + header flit
+        dest_pk = mcs_nodes[pk_mc].astype(np.int32)
+        ids_pk = (pkt_id + np.arange(npkt)).astype(np.int64)
+
+        # Packets sorted by src: each stream's packets of this layer are one
+        # run; within-run rank gives the VC, the rebased exclusive flit
+        # cumsum the stream offset.
+        s_counts = np.bincount(pk_src, minlength=p)
+        s_first = np.concatenate([[0], np.cumsum(s_counts)])[:-1]
+        within = np.arange(npkt) - np.repeat(s_first, s_counts)
+        vc_pk = ((stream_pkts[pk_src] + within) % cfg.num_vcs).astype(np.int32)
+        fcum = np.cumsum(f_tot) - f_tot
+        run0 = fcum[np.minimum(s_first, max(npkt - 1, 0))]
+        flit0 = stream_len[pk_src] + fcum - np.repeat(run0, s_counts)
+
+        # Flat flit axis: j = flit index within its packet (0 = header).
+        total_f = int(f_tot.sum())
+        fl_pk = np.repeat(np.arange(npkt), f_tot)
+        pk_f0 = np.concatenate([[0], np.cumsum(f_tot)])[:-1]
+        j = np.arange(total_f) - np.repeat(pk_f0, f_tot)
+        hdr = j == 0
+        md = np.where(hdr, 0, META_PAYLOAD).astype(np.int32)
+        md[j == f_tot[fl_pk] - 1] |= META_TAIL
+        flit_words = words_v[:, torch.as_tensor(fl_pk, device=dev),
+                             torch.as_tensor(np.maximum(j - 1, 0),
+                                             device=dev)]   # (nv, F, L)
+        hdr_words = np.zeros((npkt, lanes), np.int64)
+        hdr_words[:, 0] = dest_pk
+        hdr_words[:, 1] = ids_pk & 0xFFFFFFFF
+        hdr_words[:, 2] = pk_fpay
+        flit_words[:, torch.as_tensor(hdr, device=dev)] = torch.as_tensor(
+            hdr_words.astype(np.uint32).view(np.int32), device=dev)
+
+        scatters.append((pk_src[fl_pk], flit0[fl_pk] + j, flit_words,
+                         dest_pk[fl_pk], md, vc_pk[fl_pk],
+                         ids_pk[fl_pk].astype(np.int32)))
+        stream_len += np.bincount(pk_src, weights=f_tot,
+                                  minlength=p).astype(np.int64)
+        stream_pkts += s_counts
+        pkt_id += npkt
+
+    t = int(stream_len.max()) if p else 0
+    ns = num_streams if num_streams is not None else p
+    words_arr = torch.zeros((nv, ns, t, lanes), dtype=torch.int32, device=dev)
+    dest_arr = np.zeros((ns, t), np.int32)
+    meta_arr = np.zeros((ns, t), np.int32)
+    vc_arr = np.zeros((ns, t), np.int32)
+    pkt_arr = np.zeros((ns, t), np.int32)
+    for rows, cols, flit_words, dest_f, md, vc_f, pkt_f in scatters:
+        words_arr[:, torch.as_tensor(rows, device=dev),
+                  torch.as_tensor(cols, device=dev)] = flit_words
+        dest_arr[rows, cols] = dest_f
+        meta_arr[rows, cols] = md
+        vc_arr[rows, cols] = vc_f
+        pkt_arr[rows, cols] = pkt_f
+
+    def tile(a):
+        x = torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        return x.expand((nv,) + tuple(x.shape))
+
+    lengths = np.pad(stream_len, (0, ns - p))
+    return Traffic(
+        words=words_arr, dest=tile(dest_arr), meta=tile(meta_arr),
+        vc=tile(vc_arr), pkt=tile(pkt_arr),
+        length=tile(lengths.astype(np.int32)), num_packets=pkt_id)

@@ -15,9 +15,14 @@ reference's ``repro.noc.sim._make_step`` on the same numpy inputs:
   injection into a local FIFO that was full lands in the slot that FIFO
   pops in the same cycle (the kernel's popping thread writes it).
 
-Also the wrapper's shared-memory layout rule (``router_step.smem_layout``):
-bytes within ``SMEM_BYTES`` and which leaves it places where.
+The same on a result-phase batch, where the PEs inject (14 streams on
+4x4_mc2) and the MCs receive. Also the wrapper's shared-memory layout rule
+(``router_step.smem_layout``): bytes within ``SMEM_BYTES`` and which leaves
+it places where, at MC stream counts and at the result drains' PE stream
+counts (14, 60, 240).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -30,6 +35,7 @@ from repro.noc.topology import NocConfig as JNocConfig  # noqa: E402
 from repro_torch.kernels import router_step as rs  # noqa: E402
 from repro_torch.kernels._build import SMEM_BYTES  # noqa: E402
 from repro_torch.noc import sim  # noqa: E402
+from repro_torch.noc import topology  # noqa: E402
 from repro_torch.noc.topology import OPPOSITE, PORT_LOCAL, mesh_by_name  # noqa: E402
 from repro_torch.noc.traffic import TrafficAssembler  # noqa: E402
 
@@ -177,6 +183,20 @@ def test_push_properties_under_congestion():
     assert ejected > 0
 
 
+def test_push_properties_on_result_batch(ref_layers):
+    """LeNet's full result traffic (6,518 values, windows of 64) injected at
+    the 14 PEs of 4x4_mc2 under nearest affinity: the PEs' local FIFOs
+    fill and inject as they pop, and the properties hold."""
+    cfg = mesh_by_name("4x4_mc2")
+    t = traffic.build_result_traffic(
+        _layers_np(ref_layers), cfg, _variants(True)[10:11],
+        mc_table=topology.affinity_mc_table(cfg), device="cpu")
+    assert t.length.shape == (1, 14)
+    pe_cfg = dataclasses.replace(cfg, mc_nodes=cfg.pe_nodes)
+    peak, full, ejected = _drive(pe_cfg, t, 150, True)
+    assert peak == cfg.vc_depth and full > 0 and ejected > 0
+
+
 # --------------------------------------------------------------------------
 # The wrapper's shared-memory layout rule.
 
@@ -186,6 +206,10 @@ def test_push_properties_under_congestion():
     ("8x8_mc8", 8, ("side", "link_last"), ("payload",)),
     ("16x16_mc16", 16, ("side",), ("link_last", "payload")),
     ("16x32_mc16", 16, (), ("side", "link_last", "payload")),
+    # the result drains: PE streams (8x8: the mc4 / mc8 group's 60)
+    ("4x4_mc2", 14, ("side", "link_last", "payload"), ()),
+    ("8x8_mc4", 60, ("side", "link_last"), ("payload",)),
+    ("16x16_mc16", 240, (), ("side", "link_last", "payload")),
 ])
 def test_smem_layout_places_leaves_by_shape(mesh, m, shared, glob):
     cfg = mesh_by_name(mesh)
@@ -196,7 +220,7 @@ def test_smem_layout_places_leaves_by_shape(mesh, m, shared, glob):
     # Arrays are 16-byte aligned and disjoint, within the bytes claimed.
     placed = sorted((off, name) for name, off in lay.offsets.items()
                     if off >= 0)
-    assert [name for _, name in placed][:15] == list(rs.LAYOUT_FIELDS[:15])
+    assert [name for _, name in placed][:16] == list(rs.LAYOUT_FIELDS[:16])
     assert all(off % 4 == 0 for off, _ in placed)
     assert placed[-1][0] * 4 < lay.bytes
     nf = cfg.num_routers * 5 * cfg.num_vcs
@@ -208,10 +232,29 @@ def test_smem_layout_places_leaves_by_shape(mesh, m, shared, glob):
 
 def test_smem_layout_threads_cover_route_in_few_rounds():
     """4x4's 320 FIFOs in one round; 8x8's 1,280 in two, with its 320
-    out-port pairs and 8 streams of 16 threads in one round of 768."""
+    out-port pairs and 8 streams of 16 threads in one round of 768; the
+    result drains' 14 streams at 4x4 in one round of 384, 60 and 240 at
+    8x8 and 16x16 in rounds of 1,024."""
     for mesh, m, threads in (("4x4_mc2", 2, 320), ("8x8_mc4", 8, 768),
-                             ("16x16_mc16", 16, 1024), ("2x2_mc1", 1, 96)):
+                             ("16x16_mc16", 16, 1024), ("2x2_mc1", 1, 96),
+                             ("4x4_mc2", 14, 384), ("8x8_mc4", 60, 1024),
+                             ("16x16_mc16", 240, 1024)):
         assert rs.smem_layout(_key(mesh_by_name(mesh)), m).threads == threads
+
+
+def test_smem_layout_of_the_240_stream_result_drain():
+    """16x16_mc16's result drain: the routing state, the 240 streams' rings
+    and NI words in 178,496 bytes; the sideband (81,920 more) no longer
+    fits, so it, link_last and the payload stay in global memory."""
+    lay = rs.smem_layout(_key(mesh_by_name("16x16_mc16")), 240)
+    assert lay.offsets == {
+        "head": 0, "count": 5120, "rr": 10240, "link_bt": 12800,
+        "link_flits": 14080, "inj_ptr": 15360, "inj_bt": 15600,
+        "inj_last": 15840, "length": 19920, "mc": 20160, "inj_top": 20400,
+        "inj_next": 20640, "tail": 20880, "req": 26000, "inj_row": 27280,
+        "local_stream": 43600, "side": -1, "link_last": -1, "payload": -1}
+    assert (lay.bytes, lay.threads) == (178496, 1024)
+    assert lay.bytes + 4 * 256 * 5 * 4 * 4 > SMEM_BYTES - 64
 
 
 def test_smem_layout_refuses_state_that_fits_nowhere():

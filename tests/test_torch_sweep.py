@@ -1,7 +1,8 @@
 """Port parity: ``repro_torch.noc.run_sweep`` rows against live
 ``repro.noc.run_sweep(..., backend="fused")`` on 4x4_mc2 at the pinned
 budget (8 packets per layer, chunk 128, both precisions and tiebreaks,
-O0/O1/O2). Every key and value of every row must be equal, in order."""
+O0/O1/O2). Every key and value of every row must be equal, in order. The
+placement, affinity and result-phase axes are in test_torch_result.py."""
 import numpy as np
 import pytest
 
@@ -66,6 +67,20 @@ def test_topology_and_drain_estimate_match_reference(mesh):
 
 
 def test_later_slice_placements_raise():
+    """The placements that once raised (they arrived with the placement
+    slice): every strategy equal to the reference's on the paper meshes
+    and 16x16_mc16, and the sweep's placement / affinity validation."""
+    from repro.noc import topology as jtop
     from repro_torch.noc import topology
-    with pytest.raises(NotImplementedError, match="later slice"):
-        topology.mc_placement(8, 8, 4, "interleaved")
+    for rows, cols, n in ((4, 4, 2), (8, 8, 4), (8, 8, 8), (16, 16, 16)):
+        for strategy in topology.PLACEMENTS:
+            assert (topology.mc_placement(rows, cols, n, strategy)
+                    == jtop.mc_placement(rows, cols, n, strategy))
+    # interleaved puts every MC of these meshes in column 0 (the reference's
+    # int(i * nr / n), row-major)
+    assert topology.mc_placement(16, 16, 16, "interleaved") == tuple(
+        range(0, 256, 16))
+    with pytest.raises(ValueError, match="placements"):
+        SweepGrid(placements=("middle",))
+    with pytest.raises(ValueError, match="affinity"):
+        SweepGrid(affinity=("farthest",))

@@ -88,23 +88,51 @@ those paths against its plain PyTorch version:
                printed), and, from a second run of the cell in one
                profiler window (rows equal to the first's), each
                run_sweep stage's device idle share from its span;
- 9. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+ 9. compression - MSR (``core.msr``) through both of
+               benchmarks/compression.py's cells: the full DarkNet cell
+               (every packet streamed at 16x16_mc16, O0/O1/O2/O3 x {none,
+               msr}, fixed8, pattern; O3 on every window of 27 to 576
+               values) and the LeNet cell (6x6_mc4, 40 packets a layer):
+               each row's cycles, flits and overhead_bits equal to
+               experiments/compression.json, msr flits <= none flits,
+               every lane drained, totals below 2^31, the port's totals
+               and escape bits printed beside the record's; the DarkNet
+               cell's wire tensors reckoned first, its wall, packetize
+               (O3's apart) and simulate seconds and microseconds a
+               simulated cycle per compression, K1 and chain launches,
+               and from a second, profiled run (rows equal) the chain
+               kernel's device time and each packetize and drain span's
+               idle share;
+10. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
                the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
                the weight stream, each result == the plain version's;
-10. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-6, 8 and 9, read
-               after); each CUDA ``descending_perm`` call of phases 4-5
-               exactly one launch of the window-order kernel;
-11. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+11. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6, 8, 9 and 10,
+               read after); each CUDA ``descending_perm`` call of phases
+               4-5 exactly one launch of the window-order kernel; the
+               compression cell launched K1, the chain and its preamble;
+12. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
                the plain versions on the CPU, and 4x4_mc2 and 8x8_mc4 x
                {edge, corner, interleaved} x {roundrobin, nearest} with the
                result phase (O0/O1/O2, both precisions, result values summed
-               on the CPU for both) likewise: equal rows;
-12. timing   - each kernel at its path's shapes beside its plain version,
+               on the CPU for both) likewise, and the same grid at fixed8
+               with compression none and msr: equal rows, both phases'
+               escape-bit columns included;
+13. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
+               LeNet drains at 4x4_mc2, 8x8_mc4 and 8x8_mc8: every
+               candidate's rows equal (enforced by autotune_drain), the
+               timings and winners printed and written beside the report
+               (``drain_h100.json``, the card named in it);
+14. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
+               grid with none/msr and the result phase: its drains run the
+               plain step on the card (printed), its rows equal the router
+               kernel's; a duplicated packet id refused; one drain's
+               timestamp ledgers equal on the card and the CPU;
+15. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
@@ -179,6 +207,30 @@ DARKNET_FULL_RECORD = {
     ("interleaved", "roundrobin"): (81_924, 1_309_994, 3_095, 8_580),
     ("interleaved", "nearest"): (82_310, 1_309_994, 562, 8_580),
 }
+# MSR compression: benchmarks/compression.py's two cells, O0-O3 x {none,
+# msr}, fixed8, pattern. Their cycles, flits and overhead_bits (the O2/O3
+# recovery index) depend only on packet lengths and the mesh:
+# experiments/compression.json records them, (cycles, flits) by
+# compression and overhead_bits by transform.
+COMP_AXES = dict(transforms=("O0", "O1", "O2", "O3"), tiebreaks=("pattern",),
+                 precisions=("fixed8",), compression=("none", "msr"))
+COMP_DARKNET = dict(COMP_AXES, meshes=("16x16_mc16",), models=("darknet",),
+                    max_packets_per_layer=None, stream_chunk_packets=4096,
+                    chunk=4096)
+COMP_DARKNET_RECORD = {"none": (181_474, 1_309_994), "msr": (125_412, 911_674)}
+COMP_DARKNET_OVERHEAD = {"O0": 0, "O1": 0, "O2": 75_036_096,
+                         "O3": 75_036_096}
+COMP_LENET = dict(COMP_AXES, meshes=("6x6_mc4",), models=("lenet",),
+                  max_packets_per_layer=40, chunk=2048)
+COMP_LENET_RECORD = {"none": (962, 3_800), "msr": (640, 2_520)}
+COMP_LENET_OVERHEAD = {"O0": 0, "O1": 0, "O2": 236_480, "O3": 236_480}
+COMP_RECORD_KEY = {"darknet": "darknet_full_16x16/16x16_mc16",
+                   "lenet": "lenet_6x6/6x6_mc4"}
+# The pinned placement grid with both compressions (MSR reads int8: fixed8
+# only), and its 4x4 half for the packet-ledger drains.
+PLACED_MSR = dict(PLACED, precisions=("fixed8",), compression=("none", "msr"))
+LEDGER = dict(PLACED_MSR, meshes=("4x4_mc2",))
+TUNE_MESHES = ("4x4_mc2", "8x8_mc4", "8x8_mc8")
 # Synthetic result-phase K1 batches: (placement, affinity) lanes of one
 # mesh size, PE streams padded to the size's most PEs (8x8: mc4 and mc8
 # lanes together, 60 streams).
@@ -478,6 +530,43 @@ def check_sweep(rep, label: str, rows: int) -> None:
             fail(f"{label}: bad row {r}")
         if r["transform"] == "O0" and r["reduction_pct"] != 0:
             fail(f"{label}: O0 row is not its own baseline")
+
+
+def check_compression_cell(rep, label: str, model: str, record: dict,
+                           overhead: dict) -> dict:
+    """Hold a compression cell's rows to experiments/compression.json:
+    cycles and flits by compression, overhead_bits by transform, msr
+    flits <= none flits, every lane drained, every total in (0, 2^31).
+    Prints each row beside the record's totals (the port's image is not
+    the reference's, so its totals are not targets). Returns the record."""
+    with open(os.path.join(REPO, "experiments", "compression.json")) as f:
+        rec = json.load(f)
+    check_sweep(rep, label, 8)
+    flits = {r["compression"]: r["flits"] for r in rep.rows}
+    if not flits["msr"] <= flits["none"]:
+        fail(f"{label}: msr sends {flits['msr']} flits, none {flits['none']}")
+    for r in rep.rows:
+        comp, tr = r["compression"], r["transform"]
+        want = rec[f"{COMP_RECORD_KEY[model]}/{tr}/{comp}"]
+        got = (r["cycles"], r["flits"], r["overhead_bits"])
+        target = record[comp] + (overhead[tr],)
+        print(f"  {comp:4s} {tr}: cycles {r['cycles']} flits {r['flits']} "
+              f"overhead_bits {r['overhead_bits']} "
+              f"({'==' if got == target else '!='} the record's {target}); "
+              f"total_bt {r['total_bt']} (record {want['total_bt']}), "
+              f"compression_overhead_bits {r['compression_overhead_bits']} "
+              f"(record {want['compression_overhead_bits']}), adjusted "
+              f"reduction {r['adjusted_reduction_pct']:.2f}%", flush=True)
+        if got != target:
+            fail(f"{label} {comp}/{tr}: (cycles, flits, overhead_bits) "
+                 f"{got}, the reference recorded {target}")
+        if not 0 < r["total_bt"] < 2**31:
+            fail(f"{label} {comp}/{tr}: total_bt {r['total_bt']} outside "
+                 "(0, 2^31) (ROADMAP C5)")
+        if (comp == "msr") != (r["compression_overhead_bits"] > 0):
+            fail(f"{label} {comp}/{tr}: compression_overhead_bits "
+                 f"{r['compression_overhead_bits']}")
+    return rec
 
 
 def sweep_streams(cfg) -> int:
@@ -1316,6 +1405,123 @@ def main() -> None:
                   flush=True)
 
     ops.reset_launch_counts()
+    with Phase("compression cell (DarkNet, 16x16_mc16, O0-O3 x none/msr)"):
+        # benchmarks/compression.py's darknet_full_16x16 grid whole: every
+        # packet streamed, O3 on every DarkNet window (27 to 576 values).
+        # The wire tensor of each drain reckoned first: 4 lanes x 16 MC
+        # streams x T flits x 17 int32 words.
+        from repro_torch.noc.sweep import _QUANTIZERS
+        from repro_torch.noc.traffic import payload_shapes, stream_lengths
+        cvariants = [(wire.by_name(tr, tiebreak="pattern"),
+                      _QUANTIZERS["fixed8"])
+                     for tr in COMP_DARKNET["transforms"]]
+        wire_gb = {}
+        for comp in COMP_DARKNET["compression"]:
+            shp = payload_shapes(dlayers, 16, cvariants, compression=comp)
+            t_len = int(stream_lengths(shp, 16).max())
+            wire_gb[comp] = 4 * 16 * t_len * 17 * 4 / 1e9
+        print(f"  wire tensors (4 lanes x 16 streams x T x 17 int32): "
+              + ", ".join(f"{c} {g:.3f} GB" for c, g in wire_gb.items()),
+              flush=True)
+        t0 = time.perf_counter()
+        repc = run_sweep(SweepGrid(**COMP_DARKNET), lambda _name: dlayers)
+        torch.cuda.synchronize()
+        wallc = time.perf_counter() - t0
+        comp_launches = {k.name: k.launches for k in ops.KERNELS}
+        check_compression_cell(repc, "DarkNet compression cell", "darknet",
+                               COMP_DARKNET_RECORD, COMP_DARKNET_OVERHEAD)
+        stc = repc.stats
+        sim_by = {c["compression"]: c for c in stc["shape_classes"]}
+        cyc_by = {comp: max(r["cycles"] for r in repc.rows
+                            if r["compression"] == comp)
+                  for comp in COMP_DARKNET["compression"]}
+        dcomp = {"wall_s": wallc, "packetize_s": stc["packetize_s"],
+                 "packetize_by_transform": stc["packetize_by_transform"],
+                 "simulate_s": {c: e["simulate_s"] for c, e in sim_by.items()},
+                 "packetize_s_by_compression": {
+                     c: e["packetize_s"] for c, e in sim_by.items()},
+                 "us_per_cycle": {c: sim_by[c]["simulate_s"] * 1e6
+                                  / cyc_by[c] for c in cyc_by},
+                 "wire_gb": wire_gb,
+                 "k1_launches": comp_launches["router_step"],
+                 "chain_launches": comp_launches["chain_greedy"],
+                 "chain_inputs_launches": comp_launches["chain_inputs"],
+                 "k2_order_launches": comp_launches["descending_perm"]}
+        print(f"  [{card}] wall {wallc:.3f} s; packetize "
+              f"{stc['packetize_s']} s (by transform "
+              f"{stc['packetize_by_transform']}; O3 "
+              f"{stc['packetize_by_transform'].get('O3')} s); simulate "
+              + ", ".join(f"{c} {dcomp['simulate_s'][c]} s "
+                          f"({dcomp['us_per_cycle'][c]:.3f} us a simulated "
+                          f"cycle over {cyc_by[c]} cycles)" for c in cyc_by)
+              + f"; K1 {dcomp['k1_launches']}, chain "
+              f"{dcomp['chain_launches']}, chain preamble "
+              f"{dcomp['chain_inputs_launches']}, K2 order "
+              f"{dcomp['k2_order_launches']} launches", flush=True)
+        report["compression_darknet"] = {"rows": repc.rows, "stats": stc,
+                                         "launches": comp_launches, **dcomp}
+
+    with Phase("device idle share and chain time (DarkNet compression cell)"):
+        # The cell again in one profiler window, rows equal to the timed
+        # run's: the chain kernel's device time, and each packetize and
+        # drain span's idle share (one span a compression).
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            repc_p = run_sweep(SweepGrid(**COMP_DARKNET),
+                               lambda _name: dlayers)
+        if repc_p.rows != repc.rows:
+            fail("the profiled compression cell's rows differ from the "
+                 "timed run's")
+        chain_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and "chain_greedy" in e.key) / 1e3
+        spans = device_spans(prof)
+        idle_c = {}
+        for stage in ("packetize", "drain"):
+            windows = sorted((e.time_range.start, e.time_range.end)
+                             for e in prof.events()
+                             if e.name == f"run_sweep/{stage}"
+                             and e.device_type == DeviceType.CPU)
+            if len(windows) != 2:
+                fail(f"the profiled compression cell has {len(windows)} "
+                     f"run_sweep/{stage} spans, two expected")
+            for comp, (lo, hi) in zip(COMP_DARKNET["compression"], windows):
+                window_ms = (hi - lo) / 1e3
+                busy = busy_us(clip_spans(spans, lo, hi)) / 1e3
+                share = (1 - busy / window_ms) if spans else None
+                idle_c[f"{stage}/{comp}"] = {
+                    "window_ms": window_ms, "busy_ms": busy,
+                    "idle_share": share}
+                print(f"  [{card}] {stage} {comp}: device idle share "
+                      f"{'not measured' if share is None else f'{share:.4f}'}"
+                      f" (busy {busy:.3f} ms of a {window_ms:.3f} ms span)",
+                      flush=True)
+        print(f"  [{card}] chain kernel: {chain_ms:.3f} ms of device time "
+              f"over {comp_launches['chain_greedy']} launches"
+              if spans else "  chain kernel device time: not measured",
+              flush=True)
+        report["compression_darknet"]["chain_device_ms"] = (
+            chain_ms if spans else None)
+        report["compression_darknet"]["idle"] = idle_c
+
+    with Phase("compression cell (LeNet, 6x6_mc4, 40 packets a layer)"):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        img11, _ = glyph_batch(gen, 1, device="cuda")
+        layers11 = net.layer_traffic(img11[0])
+        t0 = time.perf_counter()
+        repl = run_sweep(SweepGrid(**COMP_LENET), lambda _name: layers11)
+        torch.cuda.synchronize()
+        walll = time.perf_counter() - t0
+        check_compression_cell(repl, "LeNet compression cell", "lenet",
+                               COMP_LENET_RECORD, COMP_LENET_OVERHEAD)
+        print(f"  [{card}] wall {walll:.3f} s", flush=True)
+        report["compression_lenet"] = {"rows": repl.rows,
+                                       "stats": repl.stats, "wall_s": walll}
+
+    ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
         # drives them (2^18 values in windows of 512), and on the trained
@@ -1368,6 +1574,7 @@ def main() -> None:
         paths = {"no_noc": nonoc_launches, "noc": main_launches,
                  "o3": o3_launches, "darknet_fig13": fig13_launches,
                  "darknet_full": dfull_launches,
+                 "compression": comp_launches,
                  "ordering_unit": unit_launches}
         launches = {k.name: sum(p[k.name] for p in paths.values())
                     for k in ops.KERNELS}
@@ -1396,10 +1603,14 @@ def main() -> None:
         print(f"  descending_perm calls {perm_calls}: one window-order "
               "launch each", flush=True)
         for name, launched in (("darknet_fig13", fig13_launches),
-                               ("darknet_full", dfull_launches)):
+                               ("darknet_full", dfull_launches),
+                               ("compression", comp_launches)):
             for k in ("router_step", "descending_perm"):
                 if launched[k] <= 0:
                     fail(f"the {name} path did not launch {k}")
+        for k in ("chain_greedy", "chain_inputs"):
+            if comp_launches[k] <= 0:
+                fail(f"the compression cell's O3 did not launch {k}")
         for name in ("bitonic_sort", "order_unit", "chain_select",
                      "popcount", "bt_count"):
             if unit_launches[name] <= 0:
@@ -1462,8 +1673,32 @@ def main() -> None:
             plainp = run_sweep(SweepGrid(**PLACED, **PINNED, device="cpu"),
                                lambda _name: layers)
             t2 = time.perf_counter()
+            # The same grid at fixed8 with both compressions.
+            kernm = run_sweep(SweepGrid(**PLACED_MSR, **PINNED),
+                              lambda _name: layers)
+            t3 = time.perf_counter()
+            plainm = run_sweep(SweepGrid(**PLACED_MSR, **PINNED,
+                                         device="cpu"),
+                               lambda _name: layers)
+            t4 = time.perf_counter()
         finally:
             sweep_mod.result_values = result_values
+        check_sweep(kernm, "pinned placement sweep with MSR", 72)
+        if kernm.rows != plainm.rows:
+            fail("pinned placement x affinity x result-phase rows with "
+                 "compression none/msr differ between the kernels on the "
+                 "card and the plain versions on the CPU")
+        if not all(r["result_compression_overhead_bits"] > 0
+                   and r["compression_overhead_bits"] > 0
+                   for r in kernm.rows if r["compression"] == "msr"):
+            fail("a pinned msr row owes no escape bits")
+        print(f"  [{card}] 72 placement x affinity x none/msr rows with the "
+              f"result phase identical (overhead columns included); card "
+              f"sweep {t3 - t2:.3f} s, CPU plain sweep {t4 - t3:.3f} s",
+              flush=True)
+        report["pinned_placed_msr"] = {"rows": kernm.rows,
+                                       "cuda": kernm.stats,
+                                       "plain_cpu": plainm.stats}
         check_sweep(kernp, "pinned placement sweep", 72)
         if kernp.rows != plainp.rows:
             fail("pinned placement x affinity x result-phase rows differ "
@@ -1475,6 +1710,87 @@ def main() -> None:
               f"{t2 - t1:.3f} s", flush=True)
         report["pinned_placed"] = {"rows": kernp.rows, "cuda": kernp.stats,
                                    "plain_cpu": plainp.stats}
+
+    with Phase("tune (drain autotune, pinned LeNet drains)"):
+        # noc.tune on the card: every candidate (fine / pinned / coarse)
+        # must give the first one's rows, which autotune_drain enforces;
+        # the winners go beside the report as the table
+        # experiments/tune/drain_h100.json is made from.
+        from repro_torch.noc import tune
+        tune_path = os.path.join(os.path.dirname(os.path.abspath(args.out)),
+                                 "drain_h100.json")
+        if os.path.exists(tune_path):
+            os.remove(tune_path)
+        tuned = {}
+        for mesh in TUNE_MESHES:
+            cfg_t = mesh_by_name(mesh)
+            rec = tune.autotune_drain(cfg_t, tune.pinned_drain(cfg_t, 8),
+                                      repeats=5, device="cuda")
+            tune.save_tuned(rec, tune_path, note=card)
+            tuned[mesh] = rec
+            print(f"  [{card}] {mesh}: winner {rec['winner']} (chunk "
+                  f"{rec['chunk']}, compact_ratio {rec['compact_ratio']}); "
+                  "best of five runs, s: " + ", ".join(
+                      f"{k} {v}" for k, v in rec["timings"].items()),
+                  flush=True)
+        report["tune"] = {"records": tuned, "path": tune_path}
+
+    with Phase("ledger (conservation check and timestamps)"):
+        # The packet ledger runs on the plain step (the router kernel
+        # carries none): the checked sweep's rows equal the K1 sweep's.
+        t0 = time.perf_counter()
+        k1_rows = run_sweep(SweepGrid(**LEDGER, **PINNED),
+                            lambda _name: layers)
+        t1 = time.perf_counter()
+        checked = run_sweep(SweepGrid(**LEDGER, **PINNED),
+                            lambda _name: layers, check_conservation=True)
+        t2 = time.perf_counter()
+        if checked.rows != k1_rows.rows:
+            fail("the conservation-checked sweep's rows differ from the "
+                 "router kernel's")
+        if (k1_rows.stats["step"], checked.stats["step"]) != ("cuda",
+                                                              "plain"):
+            fail(f"steps {k1_rows.stats['step']} / {checked.stats['step']}: "
+                 "the unchecked sweep must run the router kernel and the "
+                 "checked one the plain step")
+        print(f"  [{card}] {len(checked.rows)} rows (4x4_mc2, none/msr, "
+              f"result phase) with check_conservation == the router "
+              f"kernel's; the unchecked drains ran the "
+              f"{k1_rows.stats['step']} step ({t1 - t0:.3f} s), the checked "
+              f"drains the {checked.stats['step']} step on the card "
+              f"({t2 - t1:.3f} s)", flush=True)
+        # The negative arm: one packet id duplicated must raise.
+        from repro_torch.noc.traffic import build_traffic
+        cfg_l = mesh_by_name("4x4_mc2")
+        one = build_traffic(layers, cfg_l, wire.by_name("O1"),
+                            max_packets_per_layer=8)
+        bad = one._replace(pkt=torch.where(one.pkt == 3, 2, one.pkt))
+        try:
+            sim.simulate(cfg_l, bad, chunk=128, check_conservation=True)
+        except RuntimeError as err:
+            print(f"  duplicated packet id refused: {err}", flush=True)
+        else:
+            fail("a traffic with a duplicated packet id passed the "
+                 "conservation check on the card")
+        # Timestamps: one small drain on the card and on the CPU.
+        tc = sim.simulate(cfg_l, one, chunk=128, timestamps=True)
+        cpu_one = type(one)(*(t.cpu() for t in one[:6]),
+                            num_packets=one.num_packets)
+        tp = sim.simulate(cfg_l, cpu_one, chunk=128, timestamps=True,
+                          device="cpu")
+        if not (np.array_equal(tc.inj_time, tp.inj_time)
+                and np.array_equal(tc.eject_time, tp.eject_time)
+                and (tc.total_bt, tc.drain_cycle) == (tp.total_bt,
+                                                      tp.drain_cycle)):
+            fail("the timestamp ledgers on the card differ from the CPU's")
+        print(f"  timestamps of {one.num_packets} packets equal on the card "
+              f"and the CPU (plain step on both; drain cycle "
+              f"{tc.drain_cycle}, last tail ejected at cycle "
+              f"{int(tc.eject_time.max())})", flush=True)
+        report["ledger"] = {"rows": checked.rows,
+                            "steps": [k1_rows.stats["step"],
+                                      checked.stats["step"]],
+                            "kernel_s": t1 - t0, "checked_s": t2 - t1}
 
     kernels = []
     with Phase("timing"):

@@ -6,8 +6,9 @@
     ordering  - descending / affiliated (O1) / separated (O2) orderings and
                 the min-Hamming chains (O3, O3a)
     wire      - the WireTransform API used by the NoC packetizer
+    msr       - MSR 8b->5b flit compression codec (the compression knob)
 """
-from . import bits, bt, flits, ordering, wire
+from . import bits, bt, flits, msr, ordering, wire
 from .bits import popcount, transitions
 from .bt import (bt_between, bt_per_flit, bt_per_position, bt_stream,
                  expected_bt_pair, expected_bt_stream,
@@ -19,9 +20,14 @@ from .ordering import (Ordered, PairedOrdered, affiliated_min_hamming_order,
                        inverse_permutation, min_hamming_order,
                        separated_min_hamming_order, separated_order)
 from .wire import WireTransform, by_name as wire_transform, measure as measure_stream
+from .msr import (MsrCompressed, compress as msr_compress,
+                  decompress as msr_decompress, msr_overhead_bits, msr_pack,
+                  msr_pack_paired)
 
 __all__ = [
-    "bits", "flits", "bt", "ordering", "wire",
+    "bits", "flits", "bt", "msr", "ordering", "wire",
+    "MsrCompressed", "msr_compress", "msr_decompress",
+    "msr_overhead_bits", "msr_pack", "msr_pack_paired",
     "popcount", "transitions",
     "FlitStream", "pack", "pack_paired", "unpack",
     "bt_stream", "bt_per_flit", "bt_between", "expected_bt_pair",

@@ -10,9 +10,11 @@ the min-Hamming chains:
     O3a             -> MinHammingAffiliatedTransform (pairs chained together)
 
 plus the single-stream ``desc`` transform. Each reports the recovery
-overhead a receiver needs, so benchmarks charge it honestly. Flit
-protection and MSR compression arrive with later slices (ROADMAP queue A,
-items 11 and 13).
+overhead a receiver needs, so benchmarks charge it honestly. MSR payload
+compression (``core.msr``) is the compression axis: ``COMPRESSIONS`` and
+``compression_overhead_bits``, its escape records charged like the
+recovery index. Flit protection arrives with a later slice (ROADMAP queue
+A, item 13).
 
 ``order_packets`` is the row-batched form the packetizer uses: row ``i`` of
 its result is ``order(inputs[i], weights[i])``, i.e. each packet is its own
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import bt as bt_mod
-from . import ordering
+from . import msr, ordering
 from .flits import FlitStream, pack, pack_paired
 
 __all__ = [
@@ -42,6 +44,8 @@ __all__ = [
     "TRANSFORMS",
     "by_name",
     "measure",
+    "COMPRESSIONS",
+    "compression_overhead_bits",
 ]
 
 
@@ -260,3 +264,28 @@ def measure(stream: FlitStream) -> dict:
         "num_flits": int(stream.words.shape[0]),
         "flit_bits": stream.flit_bits,
     }
+
+
+# MSR payload compression (``core.msr``): the 5-bit codes ride the payload
+# lanes (fewer flits); the per-window escape records - outlier count and a
+# (position, top bits) record per outlier - ride the sideband like the
+# recovery index, charged analytically at half a transition per bit.
+
+COMPRESSIONS = ("none", "msr")
+
+
+def compression_overhead_bits(compression: str, values: torch.Tensor,
+                              window: int) -> int:
+    """Escape/metadata bits a compression scheme owes for sending
+    ``values`` in ``window``-slot windows (a 2-D operand matrix charges one
+    window a row; a flat stream is split into ``ceil(n / window)``).
+
+    ``none`` owes nothing; ``msr`` owes the escape records
+    (:func:`core.msr.escape_bits`). Outlier status is per value, so the
+    charge is the same under every transform's in-window permutation."""
+    if compression == "none":
+        return 0
+    if compression != "msr":
+        raise KeyError(f"unknown compression scheme {compression!r}; "
+                       f"supported: {COMPRESSIONS}")
+    return msr.escape_bits(values, window)

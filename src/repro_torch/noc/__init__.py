@@ -1,5 +1,6 @@
-"""Mesh NoC: topology, packetizer (request and result phases), cycle-level
-simulator, sweep engine, power model."""
+"""Mesh NoC: topology, packetizer (request and result phases, MSR
+compression), cycle-level simulator (with the packet ledger), sweep engine,
+drain autotune, power model."""
 from .topology import (AFFINITIES, PAPER_NOCS, PLACEMENTS, NocConfig,
                        affinity_mc_table, make_noc, mc_placement,
                        mesh_by_name, packet_mean_hops)
@@ -8,7 +9,7 @@ from .traffic import (LayerTraffic, build_result_traffic, build_traffic,
                       build_traffic_batch, build_traffic_streamed,
                       layer_results)
 from .sweep import SweepGrid, SweepReport, run_sweep
-from . import power
+from . import power, tune
 
 __all__ = ["PAPER_NOCS", "PLACEMENTS", "AFFINITIES", "NocConfig", "make_noc",
            "mc_placement", "mesh_by_name", "affinity_mc_table",
@@ -16,4 +17,4 @@ __all__ = ["PAPER_NOCS", "PLACEMENTS", "AFFINITIES", "NocConfig", "make_noc",
            "simulate_batch", "LayerTraffic", "build_traffic",
            "build_traffic_batch", "build_traffic_streamed",
            "build_result_traffic", "layer_results", "SweepGrid",
-           "SweepReport", "run_sweep", "power"]
+           "SweepReport", "run_sweep", "power", "tune"]

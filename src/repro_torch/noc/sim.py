@@ -10,16 +10,20 @@ here is the same, operation for operation.
 Two implementations of a router cycle, selected by ``backend=``:
 
 * ``plain_step`` - eager PyTorch, a copy of ``repro.noc.sim._make_step``
-  with ``faults=None``, ``track=False``, ``timestamps=False``, batched over
-  a leading variants axis. It runs on any device and is the CPU path.
+  with ``faults=None``, batched over a leading variants axis. It runs on
+  any device and is the CPU path. ``tracked_step`` is the same cycle with
+  the reference's ``track=True`` (a packet-id lane in the FIFOs and the
+  ``eject_pkt`` ledger of tail ejections) and, optionally, its
+  ``timestamps=True`` ledgers (``inj_time`` / ``eject_time``).
 * the Hopper kernel ``repro_torch.kernels.router_step`` - a whole chunk of
   cycles per launch, bit-identical to the plain step on every real router
-  row. ``backend="auto"`` uses it for CUDA tensors.
+  row. ``backend="auto"`` uses it for CUDA tensors. Like the reference's
+  Pallas step it carries no ledger: a drain with ``check_conservation`` or
+  ``timestamps`` runs the tracked plain step on the same device.
 
 State is always batched: every leaf carries a leading variants axis B;
-``simulate`` drains one Traffic as a batch of one. The conservation
-ledger, ``devices=``, timestamps and faults belong to later slices of the
-port.
+``simulate`` drains one Traffic as a batch of one. ``devices=`` and faults
+belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -34,10 +38,10 @@ from ..core.bits import popcount32
 from .topology import NocConfig, NUM_PORTS, OPPOSITE, PORT_E, PORT_LOCAL, \
     PORT_N, PORT_S, PORT_W
 
-__all__ = ["Traffic", "Wire", "SimState", "SimResult", "DrainTimeout",
-           "simulate", "simulate_batch", "make_state", "fuse_traffic",
-           "pack_sideband", "plain_step", "BACKENDS", "META_PAYLOAD",
-           "META_TAIL"]
+__all__ = ["Traffic", "Wire", "SimState", "Ledger", "SimResult",
+           "DrainTimeout", "simulate", "simulate_batch", "make_state",
+           "make_ledger", "fuse_traffic", "pack_sideband", "plain_step",
+           "tracked_step", "BACKENDS", "META_PAYLOAD", "META_TAIL"]
 
 # Flit meta bitfield
 META_PAYLOAD = 1
@@ -108,14 +112,18 @@ def pack_sideband(dest: torch.Tensor, meta: torch.Tensor,
             | (vc.to(torch.int32) << SIDE_VC_SHIFT))
 
 
-def fuse_traffic(traffic: Traffic) -> Wire:
-    """Stack payload lanes with the packed sideband, with a leading variants
-    axis (an unbatched Traffic gets B = 1)."""
+def fuse_traffic(traffic: Traffic, track_pkt: bool = False) -> Wire:
+    """Stack payload lanes with the packed sideband (and, for a tracked
+    drain, the packet-id lane), with a leading variants axis (an unbatched
+    Traffic gets B = 1)."""
     if traffic.length.dim() == 1:
         traffic = Traffic(*(t[None] for t in traffic[:6]),
                           num_packets=traffic.num_packets)
     side = pack_sideband(traffic.dest, traffic.meta, traffic.vc)
-    wire = torch.cat([traffic.words.to(torch.int32), side[..., None]], dim=-1)
+    parts = [traffic.words.to(torch.int32), side[..., None]]
+    if track_pkt:
+        parts.append(traffic.pkt.to(torch.int32)[..., None])
+    wire = torch.cat(parts, dim=-1)
     return Wire(wire.contiguous(), traffic.length.to(torch.int32).contiguous())
 
 
@@ -141,6 +149,31 @@ class SimState(NamedTuple):
         return SimState(*(leaf.index_select(0, idx) for leaf in self))
 
 
+# inj_time sentinel: "never injected"
+_TIME_UNSET = 2**31 - 1
+
+
+class Ledger(NamedTuple):
+    """Per-packet ledgers of a tracked drain, each (B, NP+1) int32, packet
+    id ``i`` at column ``i`` and a dump slot last (the reference's
+    ``SimState.eject_pkt`` / ``inj_time`` / ``eject_time``).
+
+    eject_pkt:  tail ejections per packet id (the conservation ledger).
+    inj_time:   cycle the header left its NI (``_TIME_UNSET`` until then);
+                None unless the drain runs with ``timestamps``.
+    eject_time: cycle the tail ejected (-1 until then); likewise.
+    """
+
+    eject_pkt: torch.Tensor
+    inj_time: Optional[torch.Tensor] = None
+    eject_time: Optional[torch.Tensor] = None
+
+    def take(self, idx: torch.Tensor) -> "Ledger":
+        """The lanes ``idx`` of every ledger (lane compaction)."""
+        return Ledger(*(None if x is None else x.index_select(0, idx)
+                        for x in self))
+
+
 @dataclasses.dataclass
 class SimResult:
     cycles: int
@@ -153,6 +186,10 @@ class SimResult:
     inter_router_bt: int
     # Exact cycle the last flit ejected; ``cycles`` is chunk-quantized.
     drain_cycle: Optional[int] = None
+    # Per-packet header-injection / tail-ejection cycles, (num_packets,)
+    # int32, from a drain with ``timestamps=True``; None otherwise.
+    inj_time: Optional[np.ndarray] = None
+    eject_time: Optional[np.ndarray] = None
 
     @property
     def bt_per_flit(self) -> float:
@@ -164,22 +201,27 @@ class DrainTimeout(RuntimeError):
 
     Attributes: ``cycle``, ``ejected``, ``total``; ``occupancy`` lists
     ``(router, port, flits)`` for every non-empty input-FIFO block, busiest
-    first; ``pending`` lists ``(stream, flits_not_yet_injected)``.
+    first; ``pending`` lists ``(stream, flits_not_yet_injected)``;
+    ``undelivered`` lists the packet ids with no tail ejection when the
+    drain ran with the packet ledger armed (None otherwise).
     """
 
     def __init__(self, message: str, *, cycle: int, ejected: int, total: int,
-                 occupancy=None, pending=None):
+                 occupancy=None, pending=None, undelivered=None):
         super().__init__(message)
         self.cycle = cycle
         self.ejected = ejected
         self.total = total
         self.occupancy = occupancy or []
         self.pending = pending or []
+        self.undelivered = undelivered
 
 
 def _drain_timeout(context: str, cycle: int, ejected: int, total: int,
                    count: np.ndarray, inj_ptr: np.ndarray,
-                   lengths: np.ndarray) -> DrainTimeout:
+                   lengths: np.ndarray,
+                   eject_pkt: Optional[np.ndarray] = None,
+                   npkt: int = 0) -> DrainTimeout:
     """Build the watchdog diagnostic from one lane's final state leaves."""
     nr = count.shape[0] - 1                      # drop the phantom row
     occ = count[:nr].sum(axis=-1)                # (NR, P) flits over VCs
@@ -188,6 +230,9 @@ def _drain_timeout(context: str, cycle: int, ejected: int, total: int,
     occupancy = [(int(r), int(p_), int(occ[r, p_])) for r, p_ in rp[order]]
     pending = [(int(i), int(lengths[i] - inj_ptr[i]))
                for i in np.flatnonzero(inj_ptr < lengths)]
+    undelivered = None
+    if eject_pkt is not None and npkt > 0:
+        undelivered = np.flatnonzero(eject_pkt[:npkt] == 0).tolist()
     parts = [f"{context} did not drain: {ejected}/{total} flits ejected "
              f"after {cycle} cycles"]
     if pending:
@@ -196,13 +241,19 @@ def _drain_timeout(context: str, cycle: int, ejected: int, total: int,
     if occupancy:
         parts.append("occupied FIFOs (router, port, flits): "
                      f"{occupancy[:8]}" + (" ..." if len(occupancy) > 8 else ""))
+    if undelivered is not None:
+        parts.append(f"{len(undelivered)} undelivered packet ids: "
+                     f"{undelivered[:16]}"
+                     + (" ..." if len(undelivered) > 16 else ""))
     return DrainTimeout("; ".join(parts), cycle=cycle, ejected=ejected,
-                        total=total, occupancy=occupancy, pending=pending)
+                        total=total, occupancy=occupancy, pending=pending,
+                        undelivered=undelivered)
 
 
 def make_state(cfg: NocConfig, num_mcs: int, batch: int = 1,
-               device: DeviceLike = None) -> SimState:
-    """Zeroed batched simulator state."""
+               device: DeviceLike = None, track: bool = False) -> SimState:
+    """Zeroed batched simulator state; ``track`` gives the FIFOs a
+    packet-id lane after the sideband (a tracked drain's)."""
     dev = resolve_device(device)
     nr, p, v, d, l = (cfg.num_routers, NUM_PORTS, cfg.num_vcs, cfg.vc_depth,
                       cfg.lanes)
@@ -217,12 +268,27 @@ def make_state(cfg: NocConfig, num_mcs: int, batch: int = 1,
         return torch.zeros((batch,) + shape, dtype=torch.int32, device=dev)
 
     return SimState(
-        fifo=z(nr + 1, p, v, d, l + 1), head=z(nr + 1, p, v),
+        fifo=z(nr + 1, p, v, d, l + 1 + int(track)), head=z(nr + 1, p, v),
         count=z(nr + 1, p, v), rr=z(nr, p), link_last=z(nr, p, l),
         link_bt=z(nr, p), link_flits=z(nr, p), inj_ptr=z(num_mcs),
         inj_last=z(num_mcs, l), inj_bt=z(num_mcs), ejected=z(),
         cycle=z(), drained_at=torch.full((batch,), -1, dtype=torch.int32,
                                          device=dev))
+
+
+def make_ledger(npkt: int, batch: int = 1, timestamps: bool = False,
+                device: DeviceLike = None) -> Ledger:
+    """Zeroed ledgers for packet ids ``0..npkt-1`` (and the dump slot)."""
+    if npkt <= 0:
+        raise ValueError(f"a ledger needs npkt > 0, got {npkt}")
+    dev = resolve_device(device)
+
+    def full(value):
+        return torch.full((batch, npkt + 1), value, dtype=torch.int32,
+                          device=dev)
+
+    return Ledger(full(0), full(_TIME_UNSET) if timestamps else None,
+                  full(-1) if timestamps else None)
 
 
 def _mesh_key(cfg: NocConfig):
@@ -281,9 +347,43 @@ def plain_step(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
     winners' flit gather, link BT, receiver-side pushes, injection, NI-link
     BT, drain detection. Returns a new state; ``state`` is not modified.
     """
+    return _step(state, None, wire, mc_nodes, mesh_key, count_headers)[0]
+
+
+def tracked_step(state: SimState, ledger: Ledger, wire: Wire,
+                 mc_nodes: torch.Tensor, mesh_key, count_headers: bool):
+    """:func:`plain_step` with the reference's packet ledgers
+    (``_make_step(track=True)``, and ``timestamps=True`` when ``ledger``
+    holds the time ledgers): the FIFOs and the wire carry a packet-id lane
+    after the sideband; a tail flit ejecting adds one to its id's
+    ``eject_pkt`` and stamps ``eject_time`` with the cycle (max); a header
+    flit leaving its NI stamps ``inj_time`` (min). Ids past the ledger go
+    to its dump slot. Returns ``(state, ledger)``, both new."""
+    return _step(state, ledger, wire, mc_nodes, mesh_key, count_headers)
+
+
+def _ledger_index(mask: torch.Tensor, pkt: torch.Tensor,
+                  npcap: int) -> torch.Tensor:
+    """Ledger column per flit: its packet id where ``mask`` holds (ids
+    past the ledger, or negative, at the dump slot ``npcap``), else the
+    dump slot; flattened to (B, -1) int64."""
+    b = mask.shape[0]
+    ok = mask & (pkt >= 0)
+    return torch.where(ok, torch.clamp(pkt, max=npcap), npcap).reshape(
+        b, -1).long()
+
+
+def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
+          mc_nodes: torch.Tensor, mesh_key, count_headers: bool):
     rows, cols, v, d, l = mesh_key
     nr, p = rows * cols, NUM_PORTS
-    lf = l + 1
+    lf = state.fifo.shape[-1]
+    if lf != l + 1 + (ledger is not None) or wire.wire.shape[-1] != lf:
+        raise ValueError(f"state and wire carry {lf} and "
+                         f"{wire.wire.shape[-1]} words a flit; a "
+                         f"{'tracked' if ledger is not None else 'plain'} "
+                         f"step on {l} lanes needs "
+                         f"{l + 1 + (ledger is not None)}")
     nslots = p * v
     g = _geometry(mesh_key, state.fifo.device)
     b = state.fifo.shape[0]
@@ -373,6 +473,21 @@ def plain_step(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
     ejected = state.ejected + (has & g["o_local"]).sum(
         dim=(1, 2), dtype=torch.int32)
 
+    # --- conservation ledger: tail flits ejecting at their destination ---
+    if ledger is not None:
+        npcap = ledger.eject_pkt.shape[1] - 1
+        ej_tail = has & g["o_local"] & ((mv_meta & META_TAIL) > 0)
+        lidx = _ledger_index(ej_tail, mv[..., l + 1], npcap)
+        eject_pkt = ledger.eject_pkt.scatter_add(
+            1, lidx, ej_tail.reshape(b, -1).to(torch.int32))
+        eject_time = ledger.eject_time
+        if eject_time is not None:
+            # A tail ejects once: max() against the -1 init records the
+            # cycle; other rows write -1 into the dump slot, a no-op.
+            eject_time = eject_time.scatter_reduce(
+                1, lidx, torch.where(ej_tail, state.cycle[:, None, None],
+                                     -1).reshape(b, -1), reduce="amax")
+
     # --- injection: one flit per MC per cycle into the local in-port ---
     ptr = state.inj_ptr
     active = ptr < wire.length
@@ -414,6 +529,18 @@ def plain_step(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
     inj_bt = state.inj_bt + torch.where(icounted, itog, 0)
     inj_last = torch.where(can[..., None], iw[..., :l], state.inj_last)
 
+    if ledger is not None:
+        inj_time = ledger.inj_time
+        if inj_time is not None:
+            # The header leaving the NI stamps the injection cycle: min()
+            # against the UNSET init; everything else dumps.
+            inj_hdr = can & ((imeta & META_PAYLOAD) == 0)
+            tidx = _ledger_index(inj_hdr, iw[..., l + 1], npcap)
+            inj_time = inj_time.scatter_reduce(
+                1, tidx, torch.where(inj_hdr, state.cycle[:, None],
+                                     _TIME_UNSET), reduce="amin")
+        ledger = Ledger(eject_pkt, inj_time, eject_time)
+
     total = wire.length.sum(dim=1, dtype=torch.int32)
     drained_at = torch.where((state.drained_at < 0) & (ejected >= total),
                              state.cycle + 1, state.drained_at)
@@ -421,28 +548,45 @@ def plain_step(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
     return SimState(fifo_new.reshape(state.fifo.shape), head2,
                     count_new.reshape(count2.shape), rr_new, link_last,
                     link_bt, link_flits, ptr_new, inj_last, inj_bt, ejected,
-                    state.cycle + 1, drained_at)
+                    state.cycle + 1, drained_at), ledger
 
 
-def _resolve_backend(backend: str, device: torch.device) -> str:
+def _resolve_backend(backend: str, device: torch.device,
+                     track: bool = False) -> str:
     """``auto`` -> the kernel for CUDA tensors, the plain step for CPU
-    tensors; ``cuda`` on CPU tensors raises."""
+    tensors and for every drain with a packet ledger (``track``: the
+    conservation check or the timestamps), which the kernel does not carry.
+    An explicit ``cuda`` with a ledger, or on CPU tensors, raises."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "cuda" and track:
+        raise ValueError(
+            "backend='cuda' cannot honor check_conservation / timestamps: "
+            "the Hopper router kernel carries no packet-ledger lane, as the "
+            "reference's Pallas step carries none. Use backend='auto' (a "
+            "drain with the ledger runs the plain step on the same device) "
+            "or drop the ledger.")
     if backend == "auto":
-        return "cuda" if device.type == "cuda" else "plain"
+        return "cuda" if device.type == "cuda" and not track else "plain"
     if backend == "cuda" and device.type != "cuda":
         raise ValueError("backend='cuda' runs the Hopper router kernel and "
                          f"needs CUDA tensors; the traffic is on {device}")
     return backend
 
 
-def _run_chunk(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
-               mesh_key, count_headers: bool, chunk: int,
-               backend: str) -> SimState:
+def _run_chunk(state: SimState, ledger: Optional[Ledger], wire: Wire,
+               mc_nodes: torch.Tensor, mesh_key, count_headers: bool,
+               chunk: int, backend: str):
+    """``chunk`` cycles: the tracked plain step when there is a ledger,
+    else the kernel or the plain step. Returns ``(state, ledger)``."""
     from ..kernels import ops, ref
+    if ledger is not None:
+        for _ in range(chunk):
+            state, ledger = tracked_step(state, ledger, wire, mc_nodes,
+                                         mesh_key, count_headers)
+        return state, ledger
     step = ref.router_step_ref if backend == "plain" else ops.router_step
-    return step(state, wire, mc_nodes, chunk, mesh_key, count_headers)
+    return step(state, wire, mc_nodes, chunk, mesh_key, count_headers), None
 
 
 def _validate_fields(cfg: NocConfig, traffic: Traffic) -> None:
@@ -476,22 +620,54 @@ def _mc_array(cfg: NocConfig, traffic: Traffic, m: int,
                       np.int32)
 
 
-def _result(leaves, total: int) -> SimResult:
+def _result(leaves, total: int, times=None) -> SimResult:
     (link_bt, link_flits, inj_bt, ejected, cycle, drained_at) = leaves
     drain = int(drained_at)
+    inj_time, eject_time = times if times is not None else (None, None)
     return SimResult(
         cycles=int(cycle), ejected=int(ejected), injected=total,
         link_bt=link_bt, link_flits=link_flits, inj_bt=inj_bt,
         total_bt=int(link_bt.sum() + inj_bt.sum()),
         inter_router_bt=int(link_bt[:, :PORT_LOCAL].sum()),
-        drain_cycle=drain if drain >= 0 else int(cycle))
+        drain_cycle=drain if drain >= 0 else int(cycle),
+        inj_time=inj_time, eject_time=eject_time)
 
 
-def _unsupported(check_conservation: bool, devices) -> None:
-    if check_conservation:
-        raise NotImplementedError(
-            f"check_conservation (the packet ledger) arrives with {_LATER}, "
-            "item 6")
+def _conservation_error(length: np.ndarray, meta: np.ndarray,
+                        pkt: np.ndarray, eject_pkt: np.ndarray,
+                        npkt: int) -> Optional[str]:
+    """Check every injected pkt id ejected exactly once; None when clean
+    (a copy of the reference's)."""
+    valid = np.arange(meta.shape[1])[None, :] < length[:, None]
+    tails = valid & ((meta & META_TAIL) > 0)
+    injected = np.bincount(pkt[tails].reshape(-1), minlength=npkt)[:npkt]
+    ejected = eject_pkt[:npkt]
+    bad_inj = np.flatnonzero(injected > 1)
+    if bad_inj.size:
+        return (f"packet ids injected more than once: {bad_inj[:8].tolist()}"
+                f" (counts {injected[bad_inj[:8]].tolist()})")
+    present = injected > 0
+    bad = np.flatnonzero(ejected[present] != 1)
+    if bad.size:
+        ids = np.flatnonzero(present)[bad]
+        return (f"packet ids not ejected exactly once: {ids[:8].tolist()}"
+                f" (eject counts {ejected[ids[:8]].tolist()})")
+    stray = np.flatnonzero(~present & (ejected != 0))
+    if stray.size:
+        return f"ejections for never-injected packet ids: {stray[:8].tolist()}"
+    return None
+
+
+def _npkt(traffic: Traffic) -> int:
+    """Packet ids to track: ``num_packets``, or ``pkt.max() + 1`` for a
+    hand-built Traffic without it."""
+    n = int(traffic.num_packets)
+    if n >= 0:
+        return n
+    return int(traffic.pkt.max()) + 1 if traffic.pkt.numel() else 0
+
+
+def _unsupported(devices) -> None:
     if devices is not None:
         raise NotImplementedError(
             f"devices= (sharded drains) arrives with {_LATER}, item 15")
@@ -526,75 +702,103 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def _checked_mc(cfg: NocConfig, mc_nodes, shape) -> np.ndarray:
+    """Caller-given injection nodes as int32, shape- and range-checked."""
+    mc = np.ascontiguousarray(np.asarray(mc_nodes, np.int32))
+    if mc.shape != shape:
+        raise ValueError(f"mc_nodes must have shape {shape}, got {mc.shape}")
+    if mc.size and (mc.min() < 0 or mc.max() >= cfg.num_routers):
+        raise ValueError("mc_nodes out of range for a "
+                         f"{cfg.num_routers}-router config")
+    return mc
+
+
 def simulate_batch(cfg: NocConfig, traffic: Traffic, *,
                    count_headers: bool = True, max_cycles: int = 2_000_000,
                    chunk: int = 4096, check_conservation: bool = False,
-                   devices=None, mc_nodes=None, backend: str = "auto",
+                   timestamps: bool = False, devices=None, mc_nodes=None,
+                   backend: str = "auto", compact_ratio: float = 0.5,
                    device: DeviceLike = None) -> List[SimResult]:
     """Drain B traffic variants (leading axis) together.
 
     The driver of ``repro.noc.sim.simulate_batch``: chunks of ``chunk``
     cycles, pipelined (chunk k+1 is launched before chunk k's ejected counts
     are read), lanes retire at their exact ``drain_cycle`` and the live
-    lanes are compacted into a narrower power-of-two batch once at most half
-    the rows are live (the reference's default schedule). The traffic is moved to ``device`` (CUDA unless the caller
-    passes ``device="cpu"``). ``backend``: ``"auto"`` (the Hopper kernel on
-    CUDA, the plain step on the CPU), ``"plain"`` or ``"cuda"``.
+    lanes are compacted into a narrower power-of-two batch once
+    ``live <= compact_ratio * rows`` (0.5, the reference's default, halves;
+    0.0 never compacts; ``noc.tune`` measures the alternatives). The
+    traffic is moved to ``device`` (CUDA unless the caller passes
+    ``device="cpu"``). ``backend``: ``"auto"`` (the Hopper kernel on CUDA,
+    the plain step on the CPU), ``"plain"`` or ``"cuda"``.
+
+    ``check_conservation``: track tail ejections per packet id and raise
+    ``RuntimeError`` unless every injected id ejects exactly once.
+    ``timestamps``: each result carries its packets' ``inj_time`` and
+    ``eject_time``. Either arms the packet ledger, which only the plain
+    step carries: ``auto`` then runs the plain step on ``device``, and
+    ``cuda`` raises. Results are the same with and without the ledger.
     """
+    if not 0.0 <= compact_ratio <= 1.0:
+        raise ValueError(f"compact_ratio must be in [0, 1], "
+                         f"got {compact_ratio!r}")
     dev = resolve_device(device)
-    _unsupported(check_conservation, devices)
+    _unsupported(devices)
     if traffic.length.dim() != 2:
         raise ValueError("simulate_batch wants a leading variants axis; "
                          "use simulate() for a single Traffic")
-    bk = _resolve_backend(backend, dev)
+    want_ledger = check_conservation or timestamps
+    bk = _resolve_backend(backend, dev, want_ledger)
     b, m = traffic.length.shape
     if mc_nodes is None:
         mc = np.broadcast_to(_mc_array(cfg, traffic, m, batched=True),
                              (b, m)).copy()
     else:
-        mc = np.ascontiguousarray(np.asarray(mc_nodes, np.int32))
-        if mc.shape != (b, m):
-            raise ValueError(f"mc_nodes must be ({b}, {m}), got {mc.shape}")
-        if mc.size and (mc.min() < 0 or mc.max() >= cfg.num_routers):
-            raise ValueError("mc_nodes out of range for a "
-                             f"{cfg.num_routers}-router config")
+        mc = _checked_mc(cfg, mc_nodes, (b, m))
     _validate_fields(cfg, traffic)
+    npkt = _npkt(traffic) if want_ledger else 0
+    track = npkt > 0
     lengths_host = traffic.length.cpu().numpy()
     totals = lengths_host.sum(axis=1).astype(np.int64)
     wire = fuse_traffic(Traffic(*(t.to(dev) for t in traffic[:6]),
-                                num_packets=traffic.num_packets))
+                                num_packets=traffic.num_packets), track)
     mc_dev = torch.as_tensor(mc, dtype=torch.int32, device=dev)
-    state = make_state(cfg, m, batch=b, device=dev)
+    state = make_state(cfg, m, batch=b, device=dev, track=track)
+    ledger = make_ledger(npkt, b, timestamps, dev) if track else None
     key = _mesh_key(cfg)
 
-    def run(st, w, mcn):
-        return _run_chunk(st, w, mcn, key, count_headers, chunk, bk)
+    def run(st, lg, w, mcn):
+        return _run_chunk(st, lg, w, mcn, key, count_headers, chunk, bk)
 
     harvested = {}      # lane id -> host bookkeeping leaves
+    ledgers = {}        # lane id -> host ledger rows
 
-    def harvest(st, pairs):
+    def harvest(st, lg, pairs):
         leaves = [st.link_bt.cpu().numpy(), st.link_flits.cpu().numpy(),
                   st.inj_bt.cpu().numpy(), st.ejected.cpu().numpy(),
                   st.cycle.cpu().numpy(), st.drained_at.cpu().numpy()]
+        books = ([None if x is None else x.cpu().numpy() for x in lg]
+                 if lg is not None else None)
         for lane, row in pairs:
             harvested[lane] = tuple(a[row] for a in leaves)
+            if books is not None:
+                ledgers[lane] = [None if x is None else x[row] for x in books]
 
     if totals.sum() == 0:   # empty traffic: nothing to drain
-        harvest(state, [(lane, lane) for lane in range(b)])
+        harvest(state, ledger, [(lane, lane) for lane in range(b)])
     else:
         live = list(range(b))                   # lanes still draining
         prim = {lane: lane for lane in live}    # lane -> batch row
-        state = run(state, wire, mc_dev)
+        state, ledger = run(state, ledger, wire, mc_dev)
         ej = _Snapshot(state.ejected)
         nch = 1
         while True:
-            state2 = run(state, wire, mc_dev)
+            state2, ledger2 = run(state, ledger, wire, mc_dev)
             nch += 1
             e = ej.numpy()                      # ejected after chunk nch-1
             ej2 = _Snapshot(state2.ejected)
             done = [lane for lane in live if e[prim[lane]] >= totals[lane]]
             if len(done) == len(live):
-                harvest(state2, [(lane, prim[lane]) for lane in live])
+                harvest(state2, ledger2, [(lane, prim[lane]) for lane in live])
                 break
             if (nch - 1) * chunk >= max_cycles:
                 lag = sorted(set(live) - set(done))
@@ -609,37 +813,62 @@ def simulate_batch(cfg: NocConfig, traffic: Traffic, *,
                     state2.count[row].cpu().numpy(),
                     state2.inj_ptr[row].cpu().numpy(), lengths_host[lag[0]])
             if done:
-                harvest(state2, [(lane, prim[lane]) for lane in done])
+                harvest(state2, ledger2, [(lane, prim[lane]) for lane in done])
                 gone = set(done)
                 live = [lane for lane in live if lane not in gone]
                 cur = int(state2.ejected.shape[0])
                 target = _next_pow2(len(live))
-                if len(live) <= cur // 2 and target < cur:
+                if len(live) <= int(cur * compact_ratio) and target < cur:
                     keep = [prim[lane] for lane in live]
                     rows = keep + [keep[0]] * (target - len(keep))
                     idx = torch.as_tensor(rows, dtype=torch.long, device=dev)
                     state2 = state2.take(idx)
+                    if ledger2 is not None:
+                        ledger2 = ledger2.take(idx)
                     wire = Wire(wire.wire.index_select(0, idx),
                                 wire.length.index_select(0, idx))
                     mc_dev = mc_dev.index_select(0, idx)
                     ej2 = _Snapshot(state2.ejected)
                     prim = {lane: i for i, lane in enumerate(live)}
-            state, ej = state2, ej2
+            state, ledger, ej = state2, ledger2, ej2
 
-    return [_result(harvested[i], int(totals[i])) for i in range(b)]
+    if check_conservation and track:
+        length = lengths_host
+        meta = traffic.meta.cpu().numpy()
+        pkt = traffic.pkt.cpu().numpy()
+        for i in range(b):
+            err = _conservation_error(length[i], meta[i], pkt[i],
+                                      ledgers[i][0], npkt)
+            if err:
+                raise RuntimeError(
+                    f"packet conservation violated (variant {i}): {err}")
+    return [_result(harvested[i], int(totals[i]),
+                    _times(ledgers.get(i), npkt, timestamps))
+            for i in range(b)]
+
+
+def _times(books, npkt: int, timestamps: bool):
+    """``(inj_time, eject_time)`` of one lane's host ledger rows, cut to
+    the packet ids (empty without packets), or None without timestamps."""
+    if not timestamps:
+        return None
+    if books is None:
+        return (np.zeros(0, np.int32), np.zeros(0, np.int32))
+    return books[1][:npkt], books[2][:npkt]
 
 
 def simulate(cfg: NocConfig, traffic: Traffic, *, count_headers: bool = True,
              max_cycles: int = 2_000_000, chunk: int = 4096,
-             check_conservation: bool = False, mc_nodes=None,
-             backend: str = "auto", device: DeviceLike = None) -> SimResult:
+             check_conservation: bool = False, timestamps: bool = False,
+             mc_nodes=None, backend: str = "auto",
+             device: DeviceLike = None) -> SimResult:
     """Run the NoC until one Traffic drains; per-link BT counts.
 
     ``mc_nodes``: optional per-stream injection-node ids (``cfg.mc_nodes``
-    by default). ``backend`` and ``device`` as in :func:`simulate_batch`.
+    by default). ``check_conservation``, ``timestamps``, ``backend`` and
+    ``device`` as in :func:`simulate_batch`.
     """
     dev = resolve_device(device)
-    _unsupported(check_conservation, None)
     if traffic.length.dim() != 1:
         raise ValueError("simulate wants an unbatched Traffic; use "
                          "simulate_batch() for a variants axis")
@@ -647,33 +876,41 @@ def simulate(cfg: NocConfig, traffic: Traffic, *, count_headers: bool = True,
     if mc_nodes is None:
         mc = _mc_array(cfg, traffic, m, batched=False)
     else:
-        mc = np.asarray(mc_nodes, np.int32)
-        if mc.shape != (m,):
-            raise ValueError(f"mc_nodes must have shape ({m},), "
-                             f"got {mc.shape}")
-        if mc.size and (mc.min() < 0 or mc.max() >= cfg.num_routers):
-            raise ValueError("mc_nodes out of range for a "
-                             f"{cfg.num_routers}-router config")
+        mc = _checked_mc(cfg, mc_nodes, (m,))
     _validate_fields(cfg, traffic)
-    bk = _resolve_backend(backend, dev)
+    want_ledger = check_conservation or timestamps
+    bk = _resolve_backend(backend, dev, want_ledger)
+    npkt = _npkt(traffic) if want_ledger else 0
+    track = npkt > 0
     batched = Traffic(*(t[None].to(dev) for t in traffic[:6]),
                       num_packets=traffic.num_packets)
-    wire = fuse_traffic(batched)
+    wire = fuse_traffic(batched, track)
     mc_dev = torch.as_tensor(mc[None], dtype=torch.int32, device=dev)
-    state = make_state(cfg, m, batch=1, device=dev)
+    state = make_state(cfg, m, batch=1, device=dev, track=track)
+    ledger = make_ledger(npkt, 1, timestamps, dev) if track else None
     total = int(traffic.length.sum())
     while total:    # empty traffic: nothing to drain (and T may be 0)
-        state = _run_chunk(state, wire, mc_dev, _mesh_key(cfg),
-                           count_headers, chunk, bk)
+        state, ledger = _run_chunk(state, ledger, wire, mc_dev,
+                                   _mesh_key(cfg), count_headers, chunk, bk)
         if (int(state.ejected[0]) == total
                 or int(state.cycle[0]) >= max_cycles):
             break
+    books = ([None if x is None else x[0].cpu().numpy() for x in ledger]
+             if track else None)
     if int(state.ejected[0]) != total:
         raise _drain_timeout(
             "NoC", int(state.cycle[0]), int(state.ejected[0]), total,
             state.count[0].cpu().numpy(), state.inj_ptr[0].cpu().numpy(),
-            traffic.length.cpu().numpy())
+            traffic.length.cpu().numpy(),
+            eject_pkt=books[0] if track else None, npkt=npkt)
+    if check_conservation and track:
+        err = _conservation_error(
+            traffic.length.cpu().numpy(), traffic.meta.cpu().numpy(),
+            traffic.pkt.cpu().numpy(), books[0], npkt)
+        if err:
+            raise RuntimeError(f"packet conservation violated: {err}")
     return _result((state.link_bt[0].cpu().numpy(),
                     state.link_flits[0].cpu().numpy(),
                     state.inj_bt[0].cpu().numpy(), state.ejected[0],
-                    state.cycle[0], state.drained_at[0]), total)
+                    state.cycle[0], state.drained_at[0]), total,
+                   _times(books, npkt, timestamps))

@@ -11,10 +11,11 @@ drain. Rows carry the reference's keys and values: raw BT totals, exact
 drain cycles, the reduction against the cell's O0 baseline, the honest
 reduction that charges the recovery index of O2 and O3 at half a
 transition per bit, and the result phase's columns. The transforms axis
-takes O0, O1, O2, O3 and O3a.
-
-The compression axis arrives with a later slice (ROADMAP queue A, item
-11); until then every row reads ``compression="none"``.
+takes O0, O1, O2, O3 and O3a; the compression axis ``none`` and ``msr``
+(an extra shape class per (mesh, model): MSR changes every packet's flit
+count), whose escape records are charged like the recovery index.
+``tune_path`` applies ``noc.tune``'s measured drain schedule per mesh, and
+``run_sweep(check_conservation=True)`` drains with the packet ledger.
 """
 from __future__ import annotations
 
@@ -27,16 +28,19 @@ import torch
 from torch.profiler import record_function
 
 from .._device import DeviceLike, resolve_device
-from ..core.wire import WireTransform, by_name
+from ..core import msr
+from ..core.wire import COMPRESSIONS, WireTransform, by_name
 from ..quant import quantize_fixed8
-from .sim import BACKENDS, SimResult, Traffic, simulate_batch
+from .sim import BACKENDS, SimResult, Traffic, _resolve_backend, simulate_batch
 from .topology import (AFFINITIES, PLACEMENTS, NocConfig, affinity_mc_table,
                        mc_placement, mesh_by_name, packet_mean_hops,
                        xy_link_loads)
 from .traffic import (DEFAULT_RESULT_WINDOW, LayerTraffic, assemble_traffic,
                       build_result_traffic, build_traffic_streamed_multi,
-                      ordered_payloads, pad_traffic_length, payload_shapes,
-                      result_values, stream_lengths)
+                      compression_overhead, ordered_payloads,
+                      pad_traffic_length, payload_shapes, result_values,
+                      stream_lengths)
+from .tune import load_tuned, schedule_for
 
 __all__ = ["SweepGrid", "SweepReport", "run_sweep", "recovery_overhead_bits",
            "cached_ordered_payloads", "drain_estimate"]
@@ -55,9 +59,9 @@ _LATER = "a later slice of the port (ROADMAP queue A, item {})"
 @dataclasses.dataclass(frozen=True)
 class SweepGrid:
     """One declarative sweep: meshes x MC placements x packet->MC
-    affinities x transforms x tiebreaks x precisions x models, with an
-    optional PE->MC result phase (``repro.noc.sweep.SweepGrid`` without
-    the compression, serving and fault axes).
+    affinities x transforms x tiebreaks x precisions x models x
+    compression schemes, with an optional PE->MC result phase
+    (``repro.noc.sweep.SweepGrid`` without the serving and fault axes).
 
     meshes: PAPER_NOCS names, ``RxC_mcN`` specs, or NocConfig instances.
     placements: MC placement strategies (``topology.PLACEMENTS``); ``edge``
@@ -65,6 +69,12 @@ class SweepGrid:
     affinity: packet->MC strategies (``topology.AFFINITIES``):
         ``roundrobin`` deals packet g to MC ``g % M``, ``nearest`` serves
         each PE from its hop-minimising MC (``affinity_mc_table``).
+    compression: payload compression schemes (``core.wire.COMPRESSIONS``):
+        ``none`` packs the ordered values as they are; ``msr`` packs them
+        as dense 5-bit MSR codes (``core.msr``) and charges the escape
+        records in ``compression_overhead_bits`` / ``adjusted_bt``. MSR
+        reads int8 payloads, so it needs ``precisions`` within
+        ``("fixed8",)``.
     max_packets_per_layer: deterministic-stride neuron subsampling budget;
         ``None`` packetizes the full layers through the streamed path.
     result_phase: also drain each cell's PE->MC result traffic; the rows
@@ -74,6 +84,9 @@ class SweepGrid:
         (``traffic.DEFAULT_RESULT_WINDOW`` when ``None``).
     backend: the router step - ``"auto"`` (the Hopper kernel on CUDA, the
         plain step on the CPU), ``"plain"`` or ``"cuda"``.
+    tune_path: a ``noc.tune`` winners table (JSON); each mesh found in it
+        drains with its measured chunk and ``compact_ratio``, the others
+        with ``chunk`` and 0.5. Scheduling only: the rows do not change.
     device: where the sweep runs (CUDA unless ``"cpu"`` is given).
     """
 
@@ -84,6 +97,7 @@ class SweepGrid:
     tiebreaks: Sequence[str] = ("pattern",)
     precisions: Sequence[str] = ("float32", "fixed8")
     models: Sequence[str] = ("lenet",)
+    compression: Sequence[str] = ("none",)
     max_packets_per_layer: Optional[int] = 40
     stream_chunk_packets: int = 4096
     count_headers: bool = True
@@ -93,6 +107,7 @@ class SweepGrid:
     result_phase: bool = False
     result_window: Optional[int] = None
     backend: str = "auto"
+    tune_path: Optional[str] = None
     device: Optional[str] = None
 
     def __post_init__(self):
@@ -118,6 +133,18 @@ class SweepGrid:
         if self.baseline not in self.transforms:
             raise ValueError(
                 f"baseline {self.baseline!r} not in transforms {self.transforms}")
+        unknown = set(self.compression) - set(COMPRESSIONS)
+        if unknown:
+            raise ValueError(f"unknown compression {sorted(unknown)}; "
+                             f"supported: {COMPRESSIONS}")
+        if not self.compression:
+            raise ValueError("need at least one compression scheme")
+        if "msr" in self.compression:
+            nonint = set(self.precisions) - {"fixed8"}
+            if nonint:
+                raise ValueError(
+                    "compression 'msr' reads int8 payloads; drop precisions "
+                    f"{sorted(nonint)} or sweep compression=('none',)")
 
     def variant_axes(self):
         """The per-shape-class variant list, in batch order."""
@@ -159,20 +186,23 @@ def cached_ordered_payloads(cache: Dict[tuple, list], model: str,
                             variants, axes,
                             max_packets_per_layer: Optional[int],
                             timings: Optional[Dict[str, float]] = None,
+                            compression: str = "none",
                             device: DeviceLike = None) -> list:
     """Ordered payloads for ``variants``, cached per (model, lanes,
-    transform, precision); returns the per-layer (B, n, F, L) stacks.
-    ``timings`` (transform name -> seconds, accumulated in place) charges
-    each cache miss to its transform, the device synchronised at the end."""
+    transform, precision, compression); returns the per-layer (B, n, F, L)
+    stacks. ``timings`` (transform name -> seconds, accumulated in place)
+    charges each cache miss to its transform, the device synchronised at
+    the end."""
     dev = resolve_device(device)
     stacks = []
     for (tr, q), (prec, _, _) in zip(variants, axes):
-        key = (model, lanes, tr, prec)
+        key = (model, lanes, tr, prec, compression)
         if key not in cache:
             t0 = time.perf_counter()
             cache[key] = ordered_payloads(
                 layers, lanes, [(tr, q)],
-                max_packets_per_layer=max_packets_per_layer, device=dev)
+                max_packets_per_layer=max_packets_per_layer,
+                compression=compression, device=dev)
             if timings is not None:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
@@ -231,23 +261,27 @@ def drain_estimate(cfg: NocConfig, lengths: np.ndarray) -> float:
 def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
               check_conservation: bool = False, devices=None) -> SweepReport:
     """Execute every cell of ``grid``: one packetization per (mesh,
-    placement, affinity, model) combo and ONE batched request drain per
-    (mesh, model) over every combo's lanes; with ``grid.result_phase`` one
-    more batched drain of every combo's PE->MC result traffic. One row per
-    (mesh, placement, affinity, model, precision, tiebreak, transform), in
-    the reference's row order and with its keys.
+    placement, affinity, model, compression) combo and ONE batched request
+    drain per (mesh, model, compression) over every combo's lanes; with
+    ``grid.result_phase`` one more batched drain of every combo's PE->MC
+    result traffic. One row per (mesh, placement, affinity, model,
+    compression, precision, tiebreak, transform), in the reference's row
+    order and with its keys.
+
+    ``check_conservation``: every drain runs with the packet ledger and
+    raises ``RuntimeError`` if a packet id does not eject exactly once;
+    the ledger runs on the plain step (``stats["step"]`` says which step
+    drained), and the rows are the same as without it.
 
     Each stage runs in a ``torch.profiler`` span (``run_sweep/packetize``,
     ``/drain``, ``/result_packetize``, ``/result_drain``), the device
     synchronised before it ends: a profiler window over the call reads
     each stage's device idle share; with no profiler the spans cost
     nothing measurable."""
-    if check_conservation:
-        raise NotImplementedError(
-            "check_conservation arrives with " + _LATER.format(6))
     if devices is not None:
         raise NotImplementedError("devices= arrives with " + _LATER.format(15))
     dev = resolve_device(grid.device)
+    step = _resolve_backend(grid.backend, dev, check_conservation)
     axes = grid.variant_axes()
     variants = [(by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
                 for prec, tb, tr in axes]
@@ -266,6 +300,20 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
     shape_cache: Dict[tuple, list] = {}
     # Result values depend only on (model, variants): computed once.
     rvalue_cache: Dict[str, list] = {}
+    # Escape bits per (model, precision, lanes, compression) and result
+    # outlier counts per (model, precision): value-only, shared by every
+    # mesh, placement and affinity.
+    comp_cache: Dict[tuple, int] = {}
+    routlier_cache: Dict[tuple, int] = {}
+    # The measured drain schedule per mesh; meshes missing from the table
+    # keep the grid's chunk and the half-live compaction.
+    tuned = load_tuned(grid.tune_path) if grid.tune_path else {}
+
+    def drain_sched(cfg):
+        sched = schedule_for(cfg, tuned)
+        return (sched.chunk, sched.compact_ratio) if sched else (grid.chunk,
+                                                                  0.5)
+
     # Meshes of one size share traffic shapes: pad every member of a size
     # group to the group's MC-stream count and stream length, as the
     # reference does (padding streams are empty and never inject).
@@ -284,26 +332,29 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
             torch.cuda.synchronize(dev)
 
     for mesh_name, base_cfg in resolved:
-        for model in grid.models:
+        # Compression is an extra shape class per (mesh, model): MSR changes
+        # every packet's flit count, so none and msr never share a drain.
+        for model, comp in [(m, c) for m in grid.models
+                            for c in grid.compression]:
             if model not in layer_cache:
                 layer_cache[model] = layers_for_model(model)
             layers = layer_cache[model]
 
             t0 = time.perf_counter()
             with record_function("run_sweep/packetize"):
-                pkey = (model, base_cfg.lanes)
+                pkey = (model, base_cfg.lanes, comp)
                 if pkey not in shape_cache:
                     if streamed:
                         shape_cache[pkey] = payload_shapes(
                             layers, base_cfg.lanes, variants,
                             max_packets_per_layer=grid.max_packets_per_layer,
-                            device=dev)
+                            compression=comp, device=dev)
                     else:
                         payload_cache[pkey] = cached_ordered_payloads(
                             ordered_cache, model, layers, base_cfg.lanes,
                             variants, axes,
                             max_packets_per_layer=grid.max_packets_per_layer,
-                            timings=pack_by_tr, device=dev)
+                            timings=pack_by_tr, compression=comp, device=dev)
                         shape_cache[pkey] = [(w.shape[1], w.shape[2])
                                              for w in payload_cache[pkey]]
                 group = size_groups[(base_cfg.rows, base_cfg.cols,
@@ -336,7 +387,7 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                         layers, [cfg for _, _, cfg in placed], variants,
                         chunk_packets=grid.stream_chunk_packets,
                         num_streams=mc_pad, shapes=shapes, mc_tables=tables,
-                        device=dev, timings=pack_by_tr)
+                        compression=comp, device=dev, timings=pack_by_tr)
                 else:
                     combo_traffics = [
                         assemble_traffic(payload_cache[pkey], cfg,
@@ -350,12 +401,14 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                                      mc_pad, nv)
                 sync()
             t1 = time.perf_counter()
+            d_chunk, d_ratio = drain_sched(base_cfg)
             with record_function("run_sweep/drain"):
                 results: List[SimResult] = simulate_batch(
                     base_cfg, traffic, mc_nodes=mc_rows,
-                    count_headers=grid.count_headers, chunk=grid.chunk,
-                    max_cycles=grid.max_cycles, backend=grid.backend,
-                    device=dev)
+                    count_headers=grid.count_headers, chunk=d_chunk,
+                    max_cycles=grid.max_cycles,
+                    check_conservation=check_conservation,
+                    backend=grid.backend, compact_ratio=d_ratio, device=dev)
             t2 = time.perf_counter()
             del traffic
 
@@ -378,8 +431,9 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                         max_packets_per_layer=grid.max_packets_per_layer,
                         mc_table=tbl, result_window=grid.result_window,
                         num_streams=pe_pad, values=rvalue_cache[model],
-                        device=dev)
+                        compression=comp, device=dev)
                         for (_, _, cfg), tbl in zip(placed, tables)]
+                    rnpkts = [int(p.num_packets) for p in rparts]
                     rt_pad = max(int(p.words.shape[-2]) for p in rparts)
                     rtraffic = _concat_lanes([pad_traffic_length(p, rt_pad)
                                               for p in rparts])
@@ -391,8 +445,10 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                 with record_function("run_sweep/result_drain"):
                     rres = simulate_batch(
                         base_cfg, rtraffic, mc_nodes=pe_rows,
-                        count_headers=grid.count_headers, chunk=grid.chunk,
-                        max_cycles=grid.max_cycles, backend=grid.backend,
+                        count_headers=grid.count_headers, chunk=d_chunk,
+                        max_cycles=grid.max_cycles,
+                        check_conservation=check_conservation,
+                        backend=grid.backend, compact_ratio=d_ratio,
                         device=dev)
                 del rtraffic
             t3 = time.perf_counter()
@@ -408,7 +464,7 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
             entry = {
                 "mesh": mesh_name, "placements": list(grid.placements),
                 "affinity": list(grid.affinity), "model": model,
-                "compression": "none", "variants": len(results),
+                "compression": comp, "variants": len(results),
                 "packetize_s": round(t1 - t0, 4),
                 "simulate_s": round(t2 - t1, 4),
                 "cycles_per_sec": round(class_cycles / (t2 - t1), 1)
@@ -440,9 +496,20 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                     overhead = recovery_overhead_bits(
                         layers, transform,
                         max_packets_per_layer=grid.max_packets_per_layer)
-                    # Each recovery-index bit costs half a transition (the
-                    # toggle expectation of an uninformative bit stream).
-                    adjusted_bt = res.total_bt + overhead // 2
+                    # MSR escape bits: outlier status is a property of the
+                    # value, so the charge is the same for every transform.
+                    ckey = (model, prec, base_cfg.lanes, comp)
+                    if ckey not in comp_cache:
+                        comp_cache[ckey] = compression_overhead(
+                            layers, _QUANTIZERS[prec], base_cfg.lanes, comp,
+                            max_packets_per_layer=grid.max_packets_per_layer,
+                            device=dev)
+                    comp_overhead = comp_cache[ckey]
+                    # Each recovery-index and escape bit costs half a
+                    # transition (the toggle expectation of an
+                    # uninformative bit stream).
+                    adjusted_bt = (res.total_bt + overhead // 2
+                                   + comp_overhead // 2)
                     base = base_bt[(prec, tb)]
                     if rr:
                         # The result phase is a single stream: any
@@ -451,17 +518,30 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                         roverhead = (npackets
                                      * transform.overhead_bits_per_value(
                                          min(rw, npackets), paired=False))
-                        radj = rr.total_bt + roverhead // 2
+                        rcomp = 0
+                        if comp == "msr":
+                            rokey = (model, prec)
+                            if rokey not in routlier_cache:
+                                vi = axes.index((prec, tb, tr))
+                                routlier_cache[rokey] = sum(
+                                    int(msr.outlier_mask(lay[vi]).sum())
+                                    for lay in rvalue_cache[model])
+                            # Result packets pad to lane-rounded slots: the
+                            # escape window is the padded slot count.
+                            rslots = -(-rw // base_cfg.lanes) * base_cfg.lanes
+                            rcomp = msr.msr_stream_overhead_bits(
+                                rslots, rnpkts[pi], routlier_cache[rokey])
+                        radj = rr.total_bt + roverhead // 2 + rcomp // 2
                         rbase = base_rbt[(prec, tb)]
                     rows.append({
                         "mesh": mesh_name, "placement": placement,
                         "affinity": aff, "model": model,
                         "precision": prec, "transform": tr, "tiebreak": tb,
-                        "compression": "none",
+                        "compression": comp,
                         "total_bt": res.total_bt,
                         "adjusted_bt": adjusted_bt,
                         "overhead_bits": overhead,
-                        "compression_overhead_bits": 0,
+                        "compression_overhead_bits": comp_overhead,
                         "cycles": res.drain_cycle,
                         "flits": res.injected,
                         "bt_per_flit": res.bt_per_flit,
@@ -472,7 +552,8 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                         "result_cycles": rr.drain_cycle if rr else None,
                         "result_flits": rr.injected if rr else None,
                         "result_overhead_bits": roverhead if rr else None,
-                        "result_compression_overhead_bits": 0 if rr else None,
+                        "result_compression_overhead_bits":
+                            rcomp if rr else None,
                         "result_adjusted_bt": radj if rr else None,
                         "result_adjusted_reduction_pct": (
                             (1 - radj / rbase) * 100 if rr else None),
@@ -492,6 +573,8 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
         "devices": 1,
         "result_phase": grid.result_phase,
         "device": str(dev),
+        "step": step,
+        "conservation_checked": bool(check_conservation),
         "ejected_equals_injected": all_drained,
     }
     if grid.result_phase:

@@ -16,8 +16,10 @@ Packets are dealt over the MCs round-robin or by a periodic packet->MC
 affinity table (``_McSchedule``). The PE->MC result phase
 (:func:`build_result_traffic`) packetizes one MAC value per request
 packet, grouped into per-(PE, MC) result windows and ordered by the same
-WireTransforms (``order_single``). MSR compression arrives with a later
-slice (ROADMAP queue A, item 11).
+WireTransforms (``order_single``). ``compression="msr"`` packs the same
+ordered values as dense 5-bit MSR codes (``core.msr``) in both phases:
+fewer flits a packet, a geometry that depends on the value count alone,
+and the escape records charged by :func:`compression_overhead`.
 """
 from __future__ import annotations
 
@@ -30,8 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
+from ..core import msr
 from ..core.bits import words32
-from ..core.wire import WireTransform
+from ..core.wire import (COMPRESSIONS, WireTransform,
+                         compression_overhead_bits)
 from .sim import META_PAYLOAD, META_TAIL, Traffic
 from .topology import NocConfig
 
@@ -41,7 +45,8 @@ __all__ = ["LayerTraffic", "build_traffic", "build_traffic_batch",
            "assemble_traffic", "TrafficAssembler", "stream_lengths",
            "pad_traffic_length", "stack_traffics", "conv_layer_traffic",
            "linear_layer_traffic", "build_result_traffic", "layer_results",
-           "result_values", "DEFAULT_RESULT_WINDOW"]
+           "result_values", "DEFAULT_RESULT_WINDOW", "COMPRESSIONS",
+           "compression_overhead"]
 
 # One sweep variant: an ordering transform plus an optional value->wire-dtype
 # quantizer (None transmits raw float32 words).
@@ -119,24 +124,37 @@ def _pack_paired_rows(oi: torch.Tensor, ow: torch.Tensor,
     return torch.cat([ui, uw], dim=2)
 
 
+def _check_compression(compression: str) -> None:
+    if compression not in COMPRESSIONS:
+        raise ValueError(f"unknown compression {compression!r}; "
+                         f"supported: {COMPRESSIONS}")
+
+
 def _payload_words(inp: torch.Tensor, wgt: torch.Tensor,
-                   transform: WireTransform, quantizer,
-                   lanes: int) -> torch.Tensor:
-    """Ordered payload flits of every packet: (n, F, L) int32."""
+                   transform: WireTransform, quantizer, lanes: int,
+                   compression: str = "none") -> torch.Tensor:
+    """Ordered payload flits of every packet: (n, F, L) int32. ``msr``
+    packs the same ordered values as dense 5-bit codes
+    (``msr_pack_paired`` a row)."""
     if quantizer is not None:
         inp, wgt = quantizer(inp), quantizer(wgt)
     oi, ow = transform.order_packets(inp, wgt, lanes)
-    return _pack_paired_rows(oi, ow, lanes)
+    if compression == "none":
+        return _pack_paired_rows(oi, ow, lanes)
+    return msr.msr_pack_paired_rows(oi, ow, lanes)
 
 
 def _probe_shape(inp: torch.Tensor, wgt: torch.Tensor,
-                 variants: Sequence[Variant], lanes: int) -> int:
-    """Payload flits per packet, probed on one packet per variant."""
+                 variants: Sequence[Variant], lanes: int,
+                 compression: str = "none") -> int:
+    """Payload flits per packet, probed on one packet per variant (the
+    MSR geometry, too, depends on the operand width alone)."""
     i1 = inp[:1] if inp.shape[0] else torch.zeros(
         (1,) + tuple(inp.shape[1:]), dtype=inp.dtype, device=inp.device)
     w1 = wgt[:1] if wgt.shape[0] else torch.zeros(
         (1,) + tuple(wgt.shape[1:]), dtype=wgt.dtype, device=wgt.device)
-    shapes = {tuple(_payload_words(i1, w1, tr, q, lanes).shape[1:])
+    shapes = {tuple(_payload_words(i1, w1, tr, q, lanes,
+                                   compression).shape[1:])
               for tr, q in variants}
     if len(shapes) != 1:
         raise ValueError(f"variants disagree on flit geometry: {sorted(shapes)}")
@@ -150,22 +168,25 @@ def ordered_payloads(
     variants: Sequence[Variant],
     *,
     max_packets_per_layer: Optional[int] = None,
+    compression: str = "none",
     device: DeviceLike = None,
 ) -> List[torch.Tensor]:
     """Ordered payload words per layer, stacked over variants: (B, n, F, L)
-    int32 (the mesh-independent half of packetization)."""
+    int32 (the mesh-independent half of packetization); ``compression``
+    ``"none"`` or ``"msr"``."""
     if not variants:
         raise ValueError("need at least one (transform, quantizer) variant")
+    _check_compression(compression)
     dev = resolve_device(device)
     out: List[torch.Tensor] = []
     for layer in layers:
         inp, wgt = _subsample(layer, max_packets_per_layer, dev)
         if inp.shape[0] == 0:
-            fpay = _probe_shape(inp, wgt, variants, lanes)
+            fpay = _probe_shape(inp, wgt, variants, lanes, compression)
             out.append(torch.zeros((len(variants), 0, fpay, lanes),
                                    dtype=torch.int32, device=dev))
             continue
-        per_variant = [_payload_words(inp, wgt, tr, q, lanes)
+        per_variant = [_payload_words(inp, wgt, tr, q, lanes, compression)
                        for tr, q in variants]
         shapes = {tuple(w.shape) for w in per_variant}
         if len(shapes) != 1:
@@ -181,17 +202,19 @@ def payload_shapes(
     variants: Sequence[Variant],
     *,
     max_packets_per_layer: Optional[int] = None,
+    compression: str = "none",
     device: DeviceLike = None,
 ) -> List[Tuple[int, int]]:
     """Per-layer ``(n_packets, payload_flits)``, probing one packet."""
     if not variants:
         raise ValueError("need at least one (transform, quantizer) variant")
+    _check_compression(compression)
     dev = resolve_device(device)
     out = []
     for layer in layers:
         inp, wgt = _subsample(layer, max_packets_per_layer, dev)
         out.append((int(inp.shape[0]), _probe_shape(inp, wgt, variants,
-                                                    lanes)))
+                                                    lanes, compression)))
     return out
 
 
@@ -202,6 +225,7 @@ def ordered_payloads_streamed(
     *,
     chunk_packets: int = 4096,
     max_packets_per_layer: Optional[int] = None,
+    compression: str = "none",
     device: DeviceLike = None,
     timings: Optional[Dict[str, float]] = None,
 ) -> Iterator[Tuple[int, int, torch.Tensor]]:
@@ -218,6 +242,7 @@ def ordered_payloads_streamed(
         raise ValueError("need at least one (transform, quantizer) variant")
     if chunk_packets < 1:
         raise ValueError(f"chunk_packets must be >= 1, got {chunk_packets}")
+    _check_compression(compression)
     dev = resolve_device(device)
     for li, layer in enumerate(layers):
         inp, wgt = _subsample(layer, max_packets_per_layer, dev)
@@ -233,7 +258,7 @@ def ordered_payloads_streamed(
                 t0 = time.perf_counter()
                 per_variant.append(_payload_words(
                     qi[start:start + c], qw[start:start + c], tr, None,
-                    lanes))
+                    lanes, compression))
                 if timings is not None:
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
@@ -476,6 +501,7 @@ def build_traffic_streamed_multi(
     max_packets_per_layer: Optional[int] = None,
     shapes: Optional[Sequence[Tuple[int, int]]] = None,
     mc_tables: Optional[Sequence] = None,
+    compression: str = "none",
     device: DeviceLike = None,
     timings: Optional[Dict[str, float]] = None,
 ) -> List[Traffic]:
@@ -496,15 +522,15 @@ def build_traffic_streamed_multi(
     if shapes is None:
         shapes = payload_shapes(layers, cfgs[0].lanes, variants,
                                 max_packets_per_layer=max_packets_per_layer,
-                                device=dev)
+                                compression=compression, device=dev)
     asms = [TrafficAssembler(shapes, cfg, num_streams=num_streams,
                              num_variants=len(variants), device=dev,
                              mc_table=tbl)
             for cfg, tbl in zip(cfgs, mc_tables)]
     for li, start, words in ordered_payloads_streamed(
             layers, cfgs[0].lanes, variants, chunk_packets=chunk_packets,
-            max_packets_per_layer=max_packets_per_layer, device=dev,
-            timings=timings):
+            max_packets_per_layer=max_packets_per_layer,
+            compression=compression, device=dev, timings=timings):
         for asm in asms:
             asm.add_chunk(li, start, words)
     return [asm.finish() for asm in asms]
@@ -520,6 +546,7 @@ def build_traffic_streamed(
     max_packets_per_layer: Optional[int] = None,
     shapes: Optional[Sequence[Tuple[int, int]]] = None,
     mc_table=None,
+    compression: str = "none",
     device: DeviceLike = None,
 ) -> Traffic:
     """Packetize full layers in fixed-size packet chunks; equal to
@@ -527,7 +554,8 @@ def build_traffic_streamed(
     return build_traffic_streamed_multi(
         layers, [cfg], variants, chunk_packets=chunk_packets,
         num_streams=num_streams, max_packets_per_layer=max_packets_per_layer,
-        shapes=shapes, mc_tables=[mc_table], device=device)[0]
+        shapes=shapes, mc_tables=[mc_table], compression=compression,
+        device=device)[0]
 
 
 def build_traffic_batch(
@@ -537,6 +565,7 @@ def build_traffic_batch(
     *,
     max_packets_per_layer: Optional[int] = None,
     mc_table=None,
+    compression: str = "none",
     device: DeviceLike = None,
 ) -> Traffic:
     """Packetize ``layers`` once per (transform, quantizer) variant into a
@@ -545,7 +574,7 @@ def build_traffic_batch(
     dev = resolve_device(device)
     payloads = ordered_payloads(layers, cfg.lanes, variants,
                                 max_packets_per_layer=max_packets_per_layer,
-                                device=dev)
+                                compression=compression, device=dev)
     return assemble_traffic(payloads, cfg, num_variants=len(variants),
                             device=dev, mc_table=mc_table)
 
@@ -557,13 +586,45 @@ def build_traffic(
     *,
     quantizer=None,
     max_packets_per_layer: Optional[int] = None,
+    compression: str = "none",
     device: DeviceLike = None,
 ) -> Traffic:
-    """Packetize layers under one WireTransform into per-MC streams."""
+    """Packetize layers under one WireTransform into per-MC streams
+    (``compression="msr"`` needs an 8-bit quantizer)."""
     batch = build_traffic_batch(layers, cfg, [(transform, quantizer)],
                                 max_packets_per_layer=max_packets_per_layer,
-                                device=device)
+                                compression=compression, device=device)
     return batch.variant(0)
+
+
+def compression_overhead(layers: Sequence[LayerTraffic], quantizer,
+                         lanes: int, compression: str, *,
+                         max_packets_per_layer: Optional[int] = None,
+                         device: DeviceLike = None) -> int:
+    """Total escape/metadata bits the request phase owes under
+    ``compression`` - 0 for ``"none"``.
+
+    Each packet sends two half-flit windows (inputs left, weights right),
+    each padded to ``ceil(k / (lanes / 2)) * (lanes / 2)`` slots; MSR
+    charges a count per window and a record per outlier
+    (:func:`core.wire.compression_overhead_bits`). Outlier status is per
+    value, so the charge is the same for every transform."""
+    _check_compression(compression)
+    if compression == "none":
+        return 0
+    dev = resolve_device(device)
+    half = lanes // 2
+    total = 0
+    for layer in layers:
+        inp, wgt = _subsample(layer, max_packets_per_layer, dev)
+        if inp.shape[0] == 0:
+            continue
+        if quantizer is not None:
+            inp, wgt = quantizer(inp), quantizer(wgt)
+        window = -(-int(inp.shape[1]) // half) * half
+        total += compression_overhead_bits(compression, inp, window)
+        total += compression_overhead_bits(compression, wgt, window)
+    return total
 
 
 # --- result phase: PE -> MC ejection traffic -------------------------------
@@ -606,10 +667,13 @@ def result_values(layers: Sequence[LayerTraffic], variants: Sequence[Variant],
 
 
 def _result_words(transform: WireTransform, windows: torch.Tensor,
-                  lanes: int) -> torch.Tensor:
-    """(n, w) result windows -> (n, ceil(w / lanes), lanes) int32 words;
-    row i is ``transform.apply_single(windows[i], lanes).words``."""
+                  lanes: int, compression: str = "none") -> torch.Tensor:
+    """(n, w) result windows -> (n, F, lanes) int32 words; row i is
+    ``transform.apply_single(windows[i], lanes).words``, or under ``msr``
+    ``msr_pack(transform.order_single(windows[i], lanes), lanes).words``."""
     vals = transform.order_single_packets(windows, lanes)
+    if compression == "msr":
+        return msr.msr_pack_rows(vals, lanes)
     n, k = vals.shape
     nf = -(-k // lanes)
     return F.pad(words32(vals), (0, nf * lanes - k)).reshape(n, nf, lanes)
@@ -645,13 +709,7 @@ def build_result_traffic(
     """
     if not variants:
         raise ValueError("need at least one (transform, quantizer) variant")
-    if compression == "msr":
-        raise NotImplementedError(
-            "compression='msr' on the result phase arrives with a later "
-            "slice of the port (ROADMAP queue A, item 11)")
-    if compression != "none":
-        raise ValueError(f"unknown compression {compression!r}; "
-                         "supported: ('none', 'msr')")
+    _check_compression(compression)
     dev = resolve_device(device)
     m, lanes, nv = cfg.num_mcs, cfg.lanes, len(variants)
     pes = np.asarray(cfg.pe_nodes, np.int64)
@@ -663,7 +721,10 @@ def build_result_traffic(
         raise ValueError(f"result_window must be >= 1, got {w}")
     sched = _McSchedule(m, mc_table)
     mcs_nodes = np.asarray(cfg.mc_nodes, np.int64)
-    fw = -(-w // lanes)
+    # Payload flits per full window; under MSR the window's 5-bit codes pack
+    # into ceil(5 * slots / 8) bytes of 8-bit lanes.
+    fw = (-(-w // lanes) if compression == "none"
+          else msr.compressed_payload_flits(w, lanes))
 
     # Per-stream running flit / packet counters carry the state between
     # layers; each layer is one flat (stream row, flit col) scatter.
@@ -700,13 +761,16 @@ def build_result_traffic(
 
         # One uniform-window ordering per variant; the padding zeros sort to
         # (or stay in) the tail flits, so cutting each packet to its real
-        # flit count is exact.
+        # flit count is exact - under MSR too: the kept flits cover the
+        # code bytes of the lane-rounded real slots, which hold every
+        # non-zero code.
         words_v = []
         for (tr, _), v in zip(variants, vals):
             v = v.to(dev)
             windows = torch.zeros(npkt * w, dtype=v.dtype, device=dev)
             windows[slot] = v[order_t]
-            words_v.append(_result_words(tr, windows.reshape(npkt, w), lanes))
+            words_v.append(_result_words(tr, windows.reshape(npkt, w), lanes,
+                                         compression))
         shapes = {tuple(x.shape) for x in words_v}
         if shapes != {(npkt, fw, lanes)}:
             raise ValueError(
@@ -719,7 +783,9 @@ def build_result_traffic(
         pk_mc = uniq[pk_grp] % m
         pk_idx = np.arange(npkt) - pkt_base[pk_grp]  # window index in group
         pk_c = np.minimum(counts[pk_grp] - pk_idx * w, w)
-        pk_fpay = (-(-pk_c // lanes)).astype(np.int64)
+        pk_fpay = np.asarray(-(-pk_c // lanes) if compression == "none"
+                             else msr.compressed_payload_flits(pk_c, lanes)
+                             ).astype(np.int64)
         f_tot = pk_fpay + 1                          # + header flit
         dest_pk = mcs_nodes[pk_mc].astype(np.int32)
         ids_pk = (pkt_id + np.arange(npkt)).astype(np.int64)

@@ -104,9 +104,11 @@ def test_result_traffic_refuses_msr_and_bad_arguments(ref_layers):
     layers = _layers_np(ref_layers)
     cfg = topology.mesh_by_name("4x4_mc2")
     v = _variants(True)[6:7]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        traffic.build_result_traffic(layers, cfg, v, compression="msr",
-                                     device="cpu")
+    # MSR codes int8 payloads: float32 result values are refused.
+    with pytest.raises(TypeError, match="int8"):
+        traffic.build_result_traffic(layers, cfg, _variants(True)[:1],
+                                     max_packets_per_layer=8,
+                                     compression="msr", device="cpu")
     with pytest.raises(ValueError, match="compression"):
         traffic.build_result_traffic(layers, cfg, v, compression="zip",
                                      device="cpu")

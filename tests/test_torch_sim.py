@@ -140,5 +140,8 @@ def test_backend_validation():
         sim.simulate(cfg, t, backend="mosaic2000", device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         sim.simulate(cfg, t, backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sim.simulate(cfg, t, check_conservation=True, device="cpu")
+    # The router kernel carries no packet ledger: an explicit backend="cuda"
+    # with the conservation check or the timestamps is refused.
+    with pytest.raises(ValueError, match="ledger"):
+        sim.simulate(cfg, t, check_conservation=True, backend="cuda",
+                     device="cpu")

@@ -103,17 +103,38 @@ those paths against its plain PyTorch version:
                and from a second, profiled run (rows equal) the chain
                kernel's device time and each packetize and drain span's
                idle share;
-10. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+10. faults   - benchmarks/faults.py's cell whole (trained LeNet, glyph
+               seed 11, 6x6_mc4, 24 packets a layer, fixed8, O0/O1/O2
+               packetized on the card): the null-model pin (``simulate``
+               through the router kernel == ``simulate_faulty`` with
+               nothing injected, on the plain step: total_bt, link_bt,
+               drain cycle), rates 0 / 5e-4 / 2e-3 / 8e-3 x parity / crc8
+               (seed 5, chunk 1,024) with O0/O1/O2 drained as three
+               lockstep lanes of the faulty plain step, the dead link and
+               the dead router; every entry's schedule columns (drain
+               cycle, transmitted flits, protection bits, delivered,
+               exhausted, retried packets, retries, rounds, flips, silent
+               corruption, conservation) equal to BENCH_noc.json
+               suites.faults, dead link 106 of 106 and dead router 102 + 4
+               dropped; the O1 / 2e-3 / crc8 drain alone on the card (==
+               its lane of the batch) and on the CPU, every FaultDrain
+               field equal; each entry's adjusted reduction against O0
+               beside the record's, the faulty step's ms a cycle at three
+               lanes, at one, and at one with no flips or codes, the
+               device's idle share over 128 faulty cycles at three lanes
+               (one profiler window), and the phase's wall;
+11. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
                the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
                the weight stream, each result == the plain version's;
-11. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-6, 8, 9 and 10,
+12. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6 and 8-11,
                read after); each CUDA ``descending_perm`` call of phases
                4-5 exactly one launch of the window-order kernel; the
-               compression cell launched K1, the chain and its preamble;
-12. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+               compression cell launched K1, the chain and its preamble,
+               the faults cell K1 and the window order;
+13. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
                the plain versions on the CPU, and 4x4_mc2 and 8x8_mc4 x
@@ -122,17 +143,17 @@ those paths against its plain PyTorch version:
                on the CPU for both) likewise, and the same grid at fixed8
                with compression none and msr: equal rows, both phases'
                escape-bit columns included;
-13. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
+14. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
                LeNet drains at 4x4_mc2, 8x8_mc4 and 8x8_mc8: every
                candidate's rows equal (enforced by autotune_drain), the
                timings and winners printed and written beside the report
                (``drain_h100.json``, the card named in it);
-14. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
+15. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
                grid with none/msr and the result phase: its drains run the
                plain step on the card (printed), its rows equal the router
                kernel's; a duplicated packet id refused; one drain's
                timestamp ledgers equal on the card and the CPU;
-15. timing   - each kernel at its path's shapes beside its plain version,
+16. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
@@ -161,6 +182,7 @@ timing) goes to ``--out`` (default ``build/chip_smoke.json``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -251,6 +273,25 @@ RESULT_K1_CELL = [("16x16_mc16", pl, aff)
                   for aff in DARKNET_FULL["affinity"]] * 3
 # The chain's selection penalties (repro_torch.kernels.min_hamming).
 PENALTIES = np.array([0, 1 << 28, 1 << 30, (1 << 30) + (1 << 28)], np.int32)
+# Faults: benchmarks/faults.py's cell (trained LeNet, glyph seed 11,
+# 6x6_mc4, 24 packets a layer, fixed8, O0/O1/O2; rates x protections, seed
+# 5, chunk 1,024; a dead link and a dead router). BENCH_noc.json
+# suites.faults records it; these columns depend on the schedule alone (the
+# flip hash reads (seed, cycle, link) and the linear codes' syndromes the
+# flip mask), so they are exact targets; total_bt and the adjusted
+# reductions depend on the image (ROADMAP C2).
+FAULT_RATES = (0.0, 5e-4, 2e-3, 8e-3)
+FAULT_PROTECTS = ("parity", "crc8")
+FAULT_TRANSFORMS = ("O0", "O1", "O2")
+FAULT_MAXP = 24
+FAULT_CHUNK = 1024
+FAULT_SEED = 5
+FAULT_SCHEDULE_COLUMNS = (
+    "drain_cycle", "transmitted_flits", "protection_overhead_bits",
+    "delivered", "retry_exhausted", "retried_packets", "total_retries",
+    "transmission_rounds", "flip_events", "silent_corrupt",
+    "conservation_ok")
+FAULT_HARD = {"dead_link": (106, 0), "dead_router": (102, 4)}
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
 # and the non-tensor 32-bit rate, used for 32-bit integer ALU work too.
 HBM_BYTES_PER_S = 3.35e12
@@ -567,6 +608,187 @@ def check_compression_cell(rep, label: str, model: str, record: dict,
             fail(f"{label} {comp}/{tr}: compression_overhead_bits "
                  f"{r['compression_overhead_bits']}")
     return rec
+
+
+def run_faults_cell(layers, card: str, device: str = "cuda") -> dict:
+    """benchmarks/faults.py's cell whole on ``device``: the null-model pin
+    (``simulate`` against ``simulate_faulty(FaultModel())``), the rate x
+    protection matrix with O0/O1/O2 drained as lockstep lanes of one batch,
+    the dead link and the dead router; every entry held to BENCH_noc.json's
+    schedule columns and every ledger to its conservation identity.
+    Returns the phase's report; any mismatch fails the script."""
+    import torch
+    from repro_torch.core.wire import by_name
+    from repro_torch.noc import faults, sim
+    from repro_torch.noc.sweep import recovery_overhead_bits
+    from repro_torch.noc.topology import make_noc
+    from repro_torch.noc.traffic import build_traffic_batch
+    from repro_torch.quant import quantize_fixed8
+
+    with open(os.path.join(REPO, "BENCH_noc.json")) as f:
+        record = json.load(f)["suites"]["faults"]
+    want = {(e["transform"], e["fault_rate"], e["protect"]): e
+            for e in record["entries"]}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    cfg = make_noc(6, 6, 4)
+    batch = build_traffic_batch(
+        layers, cfg, [(by_name(tr), lambda t: quantize_fixed8(t).values)
+                      for tr in FAULT_TRANSFORMS],
+        max_packets_per_layer=FAULT_MAXP, device=device)
+    rec = {tr: recovery_overhead_bits(layers, by_name(tr),
+                                      max_packets_per_layer=FAULT_MAXP)
+           for tr in FAULT_TRANSFORMS}
+    # Seconds and stepped cycles: three lockstep lanes with flips and
+    # codes (the matrix), one lane with them (O1 / 2e-3 / crc8 alone), and
+    # one lane without (the null pin and the hard faults: the detour table
+    # and the ledgers only).
+    timed = {"three_lanes": [0.0, 0], "one_lane": [0.0, 0],
+             "one_lane_no_flips": [0.0, 0]}
+
+    def drain(fn, lanes_key):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        first = out[0] if isinstance(out, list) else out
+        timed[lanes_key][0] += dt
+        timed[lanes_key][1] += first.sim.cycles
+        return out, dt
+
+    # The null-model pin: the clean drain (the router kernel on the card)
+    # against the faulty drain with nothing injected (the plain step).
+    clean = sim.simulate(cfg, batch.variant(0), chunk=FAULT_CHUNK,
+                         device=device)
+    fd0, _ = drain(lambda: faults.simulate_faulty(
+        cfg, batch.variant(0), faults.FaultModel(), chunk=FAULT_CHUNK,
+        device=device), "one_lane_no_flips")
+    pin = (clean.total_bt == fd0.sim.total_bt
+           and clean.drain_cycle == fd0.sim.drain_cycle
+           and np.array_equal(clean.link_bt, fd0.sim.link_bt))
+    if not pin:
+        fail(f"null FaultModel drain != simulate(): bt {clean.total_bt} vs "
+             f"{fd0.sim.total_bt}, cycles {clean.drain_cycle} vs "
+             f"{fd0.sim.drain_cycle}")
+    print(f"  [{card}] null-model pin: simulate ({device} "
+          f"{'router kernel' if device == 'cuda' else 'plain step'}) == "
+          f"simulate_faulty(FaultModel()) (plain step): total_bt "
+          f"{clean.total_bt}, link_bt equal, drain cycle "
+          f"{clean.drain_cycle}", flush=True)
+
+    entries, drains = [], {}
+    for protect in FAULT_PROTECTS:
+        for rate in FAULT_RATES:
+            model = faults.FaultModel(rate=rate, protect=protect,
+                                      seed=FAULT_SEED)
+            lanes, dt = drain(lambda: faults.simulate_faulty_batch(
+                cfg, batch, model, chunk=FAULT_CHUNK, device=device),
+                "three_lanes")
+            base_adj = None
+            for tr, fd in zip(FAULT_TRANSFORMS, lanes):
+                led = fd.ledger
+                if not led["conservation_ok"]:
+                    fail(f"conservation violated at rate={rate} "
+                         f"protect={protect} transform={tr}: {led}")
+                adj = (fd.sim.total_bt + rec[tr] // 2
+                       + led["protection_overhead_bits"] // 2)
+                base_adj = adj if tr == "O0" else base_adj
+                got = {"drain_cycle": fd.sim.drain_cycle,
+                       **{k: led[k] for k in FAULT_SCHEDULE_COLUMNS[1:]}}
+                ref = want[(tr, rate, protect)]
+                bad = {k: (got[k], ref[k]) for k in FAULT_SCHEDULE_COLUMNS
+                       if got[k] != ref[k]}
+                if bad:
+                    fail(f"faults {tr} rate {rate} {protect}: (port, "
+                         f"record) differ in {bad}")
+                entries.append({
+                    "transform": tr, "fault_rate": rate, "protect": protect,
+                    **got, "total_bt": fd.sim.total_bt, "adjusted_bt": adj,
+                    "adjusted_reduction_pct": (1 - adj / base_adj) * 100,
+                    "record_total_bt": ref["total_bt"],
+                    "record_adjusted_reduction_pct":
+                        ref["adjusted_reduction_pct"],
+                    "drain_s": dt})
+                drains[(tr, rate, protect)] = fd
+            e = entries[-1]
+            print(f"  [{card}] rate {rate:g} {protect}: drain cycle "
+                  f"{e['drain_cycle']}, {e['transmitted_flits']} flits, "
+                  f"{e['delivered']} delivered / {e['retry_exhausted']} "
+                  f"exhausted, {e['total_retries']} retries, "
+                  f"{e['flip_events']} flips, {e['silent_corrupt']} silent, "
+                  f"{e['transmission_rounds']} rounds (== record); adjusted "
+                  "reduction O1 / O2 "
+                  + " / ".join(f"{x['adjusted_reduction_pct']:.3f}"
+                               for x in entries[-2:])
+                  + " % (record "
+                  + " / ".join(f"{x['record_adjusted_reduction_pct']}"
+                               for x in entries[-2:])
+                  + f" %); {dt:.3f} s for 3 lanes", flush=True)
+
+    hard = {}
+    for name, model in (
+            ("dead_link", faults.FaultModel(dead_links=((cfg.cols + 1, 0),),
+                                            seed=FAULT_SEED)),
+            ("dead_router", faults.FaultModel(dead_routers=(cfg.cols + 1,),
+                                              seed=FAULT_SEED))):
+        fd, dt = drain(lambda: faults.simulate_faulty(
+            cfg, batch.variant(0), model, chunk=FAULT_CHUNK, device=device),
+            "one_lane_no_flips")
+        led = fd.ledger
+        rec_h = record["hard_faults"][name]
+        got_h = {k: led[k] for k in rec_h}
+        if (got_h != rec_h or (led["delivered"], led["dropped"])
+                != FAULT_HARD[name]):
+            fail(f"{name}: ledger {got_h} != record {rec_h}")
+        hard[name] = {**got_h, "total_bt": fd.sim.total_bt,
+                      "drain_cycle": fd.sim.drain_cycle, "drain_s": dt}
+        print(f"  [{card}] {name}: {led['delivered']} of "
+              f"{led['injected_packets']} delivered, {led['dropped']} "
+              f"dropped, ledger closes (== record); drain cycle "
+              f"{fd.sim.drain_cycle}", flush=True)
+
+    # One lockstep lane alone: the same drain as the batch's O1 lane.
+    key = ("O1", 2e-3, "crc8")
+    single, _ = drain(lambda: faults.simulate_faulty(
+        cfg, batch.variant(FAULT_TRANSFORMS.index("O1")),
+        faults.FaultModel(rate=2e-3, protect="crc8", seed=FAULT_SEED),
+        chunk=FAULT_CHUNK, device=device), "one_lane")
+    diff = [f.name for f in dataclasses.fields(single)
+            if not same_fault_field(getattr(single, f.name),
+                                    getattr(drains[key], f.name))]
+    if diff:
+        fail(f"the O1 / 2e-3 / crc8 drain alone differs from its lane of "
+             f"the three-lane batch in {diff}")
+    wall = time.perf_counter() - t_phase
+    ms_cycle = {k: (v[0] / v[1] * 1e3 if v[1] else None)
+                for k, v in timed.items()}
+    print(f"  [{card}] O1 / 2e-3 / crc8 alone == its lane of the batch; "
+          f"faulty step on {device}: {ms_cycle['three_lanes']:.3f} ms a "
+          f"cycle at three lanes ({timed['three_lanes'][1]} cycles), "
+          f"{ms_cycle['one_lane']:.3f} at one ({timed['one_lane'][1]}), "
+          f"{ms_cycle['one_lane_no_flips']:.3f} at one with no flips or "
+          f"codes ({timed['one_lane_no_flips'][1]}); phase wall {wall:.3f} s",
+          flush=True)
+    return {"entries": entries, "hard_faults": hard,
+            "zero_fault_identical": pin, "ms_per_cycle": ms_cycle,
+            "cycles": {k: v[1] for k, v in timed.items()},
+            "wall_s": wall, "single": single, "batch": batch, "cfg": cfg}
+
+
+def same_fault_field(a, b) -> bool:
+    """Two values of one FaultDrain field equal: arrays element for
+    element, a SimResult field for field, anything else by ``==``."""
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    if dataclasses.is_dataclass(a):
+        return all(same_fault_field(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a == b
 
 
 def sweep_streams(cfg) -> int:
@@ -1522,6 +1744,65 @@ def main() -> None:
                                        "stats": repl.stats, "wall_s": walll}
 
     ops.reset_launch_counts()
+    with Phase("faults (LeNet, 6x6_mc4, benchmarks/faults.py's cell)"):
+        # The cell whole on the card: its packetize launches the window
+        # order (O1/O2), its null-model pin the router kernel; the faulty
+        # drains run the plain step (the kernel has no fault hooks).
+        fcell = run_faults_cell(layers11, card)
+        faults_launches = {k.name: k.launches for k in ops.KERNELS}
+        # One drain again on the CPU, on the same traffic: O1 at rate 2e-3
+        # under crc8 against the card's (equal to its lane of the batch).
+        from repro_torch.noc import faults as faults_mod
+        one_f = fcell["batch"].variant(FAULT_TRANSFORMS.index("O1"))
+        t0 = time.perf_counter()
+        cpu_f = faults_mod.simulate_faulty(
+            fcell["cfg"], type(one_f)(*(t.cpu() for t in one_f[:6]),
+                                      num_packets=one_f.num_packets),
+            faults_mod.FaultModel(rate=2e-3, protect="crc8",
+                                  seed=FAULT_SEED),
+            chunk=FAULT_CHUNK, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        card_f = fcell["single"]
+        diff = [f.name for f in dataclasses.fields(card_f)
+                if not same_fault_field(getattr(card_f, f.name),
+                                        getattr(cpu_f, f.name))]
+        if diff:
+            fail(f"the card's O1 / 2e-3 / crc8 fault drain differs from the "
+                 f"CPU's in {diff}")
+        print(f"  [{card}] O1 / 2e-3 / crc8: every FaultDrain field equal on "
+              f"the card and the CPU ({t_cpu:.3f} s on the CPU, "
+              f"{cpu_f.sim.cycles} cycles); K1 "
+              f"{faults_launches['router_step']}, K2 order "
+              f"{faults_launches['descending_perm']} launches", flush=True)
+        # The device's idle share over 128 cycles of the faulty step at
+        # three lanes (a drain cut at 128 cycles), from one profiler window.
+        from torch.profiler import ProfilerActivity, profile
+        fmodel = faults_mod.FaultModel(rate=2e-3, protect="crc8",
+                                       seed=FAULT_SEED)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            faults_mod.simulate_faulty_batch(
+                fcell["cfg"], fcell["batch"], fmodel, chunk=128,
+                max_cycles=128, allow_truncation=True)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        spans = device_spans(prof)
+        busy = busy_us(spans) / 1e3
+        share = (1 - busy / window_ms) if spans else None
+        print(f"  [{card}] faulty step, 3 lanes, 128 cycles in a profiler "
+              f"window: device idle share "
+              f"{'not measured' if share is None else f'{share:.4f}'} "
+              f"(busy {busy:.3f} ms of {window_ms:.3f} ms)", flush=True)
+        report["faults"] = {k: fcell[k] for k in (
+            "entries", "hard_faults", "zero_fault_identical", "ms_per_cycle",
+            "cycles", "wall_s")}
+        report["faults"].update(launches=faults_launches, cpu_drain_s=t_cpu,
+                                idle_share=share, busy_ms=busy,
+                                window_ms=window_ms)
+
+    ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
         # drives them (2^18 values in windows of 512), and on the trained
@@ -1575,6 +1856,7 @@ def main() -> None:
                  "o3": o3_launches, "darknet_fig13": fig13_launches,
                  "darknet_full": dfull_launches,
                  "compression": comp_launches,
+                 "faults": faults_launches,
                  "ordering_unit": unit_launches}
         launches = {k.name: sum(p[k.name] for p in paths.values())
                     for k in ops.KERNELS}
@@ -1604,7 +1886,8 @@ def main() -> None:
               "launch each", flush=True)
         for name, launched in (("darknet_fig13", fig13_launches),
                                ("darknet_full", dfull_launches),
-                               ("compression", comp_launches)):
+                               ("compression", comp_launches),
+                               ("faults", faults_launches)):
             for k in ("router_step", "descending_perm"):
                 if launched[k] <= 0:
                     fail(f"the {name} path did not launch {k}")

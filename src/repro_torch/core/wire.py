@@ -24,8 +24,10 @@ is the same for the result phase's single-stream packets.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,6 +48,10 @@ __all__ = [
     "measure",
     "COMPRESSIONS",
     "compression_overhead_bits",
+    "PROTECTION_BITS",
+    "protection_overhead_bits",
+    "crc8_reference",
+    "protection_syndrome_masks",
 ]
 
 
@@ -289,3 +295,57 @@ def compression_overhead_bits(compression: str, values: torch.Tensor,
         raise KeyError(f"unknown compression scheme {compression!r}; "
                        f"supported: {COMPRESSIONS}")
     return msr.escape_bits(values, window)
+
+
+# Flit protection codes (the fault-injection wire axis). The code bits ride
+# the sideband, not the payload lanes, so they never perturb the recorded
+# payload BT: their cost is charged analytically, like the O2 recovery
+# index, on every transmitted flit.
+
+PROTECTION_BITS = {"none": 0, "parity": 1, "crc8": 8}
+
+
+def protection_overhead_bits(protect: str, num_flits: int) -> int:
+    """Protection bits owed for ``num_flits`` transmitted flits (callers
+    charge the transmitted count, retransmissions included)."""
+    return PROTECTION_BITS[protect] * int(num_flits)
+
+
+def crc8_reference(data: bytes) -> int:
+    """Bitwise CRC-8 (poly 0x07, init 0, MSB-first, no xor-out). With init
+    0 the map is linear over GF(2): ``crc(a ^ b) = crc(a) ^ crc(b)``."""
+    crc = 0
+    for byte in data:
+        crc ^= byte
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x07) & 0xFF if crc & 0x80 else (crc << 1) & 0xFF
+    return crc
+
+
+@functools.lru_cache(maxsize=None)
+def protection_syndrome_masks(protect: str, lanes: int) -> np.ndarray:
+    """``(code_bits, lanes)`` int32 masks (uint32 bit patterns, so
+    ``0xFFFFFFFF`` is -1): code bit ``j`` of a flit payload is
+    ``popcount(payload & masks[j]) & 1`` summed over the lanes.
+
+    The message is the payload words in lane order, little-endian bytes,
+    LSB-first bits; both codes are linear with zero init, so a code is the
+    XOR of its set bits' syndromes. Parity is the one all-ones mask. Cached
+    per ``(protect, lanes)``; the array is read-only."""
+    if protect not in PROTECTION_BITS:
+        raise KeyError(f"unknown protection scheme {protect!r}; "
+                       f"supported: {sorted(PROTECTION_BITS)}")
+    masks = np.zeros((PROTECTION_BITS[protect], lanes), dtype=np.uint32)
+    if protect == "parity":
+        masks[0, :] = 0xFFFFFFFF
+    elif protect == "crc8":
+        for pos in range(lanes * 32):
+            msg = bytearray(lanes * 4)
+            msg[pos // 8] = 1 << (pos % 8)
+            syndrome = crc8_reference(bytes(msg))
+            for j in range(8):
+                if syndrome >> j & 1:
+                    masks[j, pos // 32] |= np.uint32(1 << (pos % 32))
+    masks = masks.view(np.int32)
+    masks.flags.writeable = False
+    return masks

@@ -14,16 +14,21 @@ Two implementations of a router cycle, selected by ``backend=``:
   any device and is the CPU path. ``tracked_step`` is the same cycle with
   the reference's ``track=True`` (a packet-id lane in the FIFOs and the
   ``eject_pkt`` ledger of tail ejections) and, optionally, its
-  ``timestamps=True`` ledgers (``inj_time`` / ``eject_time``).
+  ``timestamps=True`` ledgers (``inj_time`` / ``eject_time``). Given a
+  fault spec (``faults=``, a ``noc.faults.StepFaults``) it is also the
+  reference's faulty step: the detour route table, the seeded flip
+  schedule on router and NI links, and the ``flip_pkt`` / ``bad_pkt``
+  ledgers of flips and of protection-detected corrupt flits.
 * the Hopper kernel ``repro_torch.kernels.router_step`` - a whole chunk of
   cycles per launch, bit-identical to the plain step on every real router
   row. ``backend="auto"`` uses it for CUDA tensors. Like the reference's
-  Pallas step it carries no ledger: a drain with ``check_conservation`` or
-  ``timestamps`` runs the tracked plain step on the same device.
+  Pallas step it carries no ledger and no faults: a drain with
+  ``check_conservation``, ``timestamps`` or faults runs the tracked plain
+  step on the same device.
 
 State is always batched: every leaf carries a leading variants axis B;
-``simulate`` drains one Traffic as a batch of one. ``devices=`` and faults
-belong to later slices of the port.
+``simulate`` drains one Traffic as a batch of one. ``devices=`` belongs to
+a later slice of the port.
 """
 from __future__ import annotations
 
@@ -35,8 +40,9 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..core.bits import popcount32
+from ..core.wire import PROTECTION_BITS, protection_syndrome_masks
 from .topology import NocConfig, NUM_PORTS, OPPOSITE, PORT_E, PORT_LOCAL, \
-    PORT_N, PORT_S, PORT_W
+    PORT_N, PORT_S, PORT_W, fault_route_table
 
 __all__ = ["Traffic", "Wire", "SimState", "Ledger", "SimResult",
            "DrainTimeout", "simulate", "simulate_batch", "make_state",
@@ -156,17 +162,24 @@ _TIME_UNSET = 2**31 - 1
 class Ledger(NamedTuple):
     """Per-packet ledgers of a tracked drain, each (B, NP+1) int32, packet
     id ``i`` at column ``i`` and a dump slot last (the reference's
-    ``SimState.eject_pkt`` / ``inj_time`` / ``eject_time``).
+    ``SimState.eject_pkt`` / ``inj_time`` / ``eject_time`` / ``flip_pkt``
+    / ``bad_pkt``).
 
     eject_pkt:  tail ejections per packet id (the conservation ledger).
     inj_time:   cycle the header left its NI (``_TIME_UNSET`` until then);
                 None unless the drain runs with ``timestamps``.
     eject_time: cycle the tail ejected (-1 until then); likewise.
+    flip_pkt:   bit-flip events per packet id, whatever the protection;
+                None unless the drain has faults.
+    bad_pkt:    flits whose protection check failed at ejection, per
+                packet id; likewise.
     """
 
     eject_pkt: torch.Tensor
     inj_time: Optional[torch.Tensor] = None
     eject_time: Optional[torch.Tensor] = None
+    flip_pkt: Optional[torch.Tensor] = None
+    bad_pkt: Optional[torch.Tensor] = None
 
     def take(self, idx: torch.Tensor) -> "Ledger":
         """The lanes ``idx`` of every ledger (lane compaction)."""
@@ -277,10 +290,16 @@ def make_state(cfg: NocConfig, num_mcs: int, batch: int = 1,
 
 
 def make_ledger(npkt: int, batch: int = 1, timestamps: bool = False,
-                device: DeviceLike = None) -> Ledger:
-    """Zeroed ledgers for packet ids ``0..npkt-1`` (and the dump slot)."""
+                device: DeviceLike = None,
+                fault_ledgers: bool = False) -> Ledger:
+    """Zeroed ledgers for packet ids ``0..npkt-1`` (and the dump slot);
+    ``fault_ledgers`` adds ``flip_pkt`` / ``bad_pkt`` (it needs
+    ``timestamps``, as the reference's ``make_state`` does)."""
     if npkt <= 0:
         raise ValueError(f"a ledger needs npkt > 0, got {npkt}")
+    if fault_ledgers and not timestamps:
+        raise ValueError("fault_ledgers=True requires timestamps=True (the "
+                         "fault step needs the timing ledgers for retries)")
     dev = resolve_device(device)
 
     def full(value):
@@ -288,7 +307,9 @@ def make_ledger(npkt: int, batch: int = 1, timestamps: bool = False,
                           device=dev)
 
     return Ledger(full(0), full(_TIME_UNSET) if timestamps else None,
-                  full(-1) if timestamps else None)
+                  full(-1) if timestamps else None,
+                  full(0) if fault_ledgers else None,
+                  full(0) if fault_ledgers else None)
 
 
 def _mesh_key(cfg: NocConfig):
@@ -337,6 +358,84 @@ def _geometry(mesh_key, device: torch.device):
     return geo
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2^32`` on int64 carriers of uint32 values: ``c`` split
+    in 16-bit halves, so no product passes 2^48 (no signed overflow)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The reference's SplitMix32 finalizer (``repro.noc.sim._mix32``) on
+    int64 carriers: the uint32 value of ``x`` in, a uint32 value out in
+    [0, 2^32), with logical shifts and multiplies that wrap at 2^32
+    (ROADMAP C1 / C5: on int32 carriers ``>>`` is arithmetic and the
+    schedule goes wrong for every hash with bit 31 set)."""
+    x = x.to(torch.int64) & _U32
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 carriers of uint32 values -> the int32 bit patterns."""
+    return ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+_FAULTS = {}
+
+
+def _fault_consts(mesh_key, faults, m: int, device: torch.device):
+    """The faulty step's constants (``_make_step``'s ``faults`` block):
+    the detour table, the flip threshold and the per-link seed hashes
+    (router links ``0..NR*P-1``, the local port included, then NI links
+    ``NR*P + stream``), the protection code width and syndrome masks;
+    cached per (mesh, spec, streams, device)."""
+    key = (mesh_key, tuple(faults), m, str(device))
+    if key in _FAULTS:
+        return _FAULTS[key]
+    rows, cols, num_vcs, vc_depth, lanes = mesh_key
+    cfg = NocConfig(rows, cols, (), num_vcs=num_vcs, vc_depth=vc_depth,
+                    lanes=lanes)
+    route, _ = fault_route_table(cfg, tuple(faults.dead_links),
+                                 tuple(faults.dead_routers))
+    rate = float(faults.rate)
+    pbits = PROTECTION_BITS[faults.protect]
+    fc = dict(froute=torch.as_tensor(route.reshape(-1), device=device),
+              flips=rate > 0.0, pbits=pbits)
+    if fc["flips"]:
+        fc["thresh"] = min(int(round(rate * 2.0**32)), 2**32 - 1)
+        seed = int(faults.seed) & _U32
+        lid = torch.arange(rows * cols * NUM_PORTS + m, dtype=torch.int64,
+                           device=device)
+        fc["lid_hash"] = _mix32((lid + seed) & _U32)
+    if pbits:
+        fc["syn"] = torch.tensor(
+            protection_syndrome_masks(faults.protect, lanes), device=device)
+    _FAULTS[key] = fc
+    return fc
+
+
+def protection_code(payload: torch.Tensor, syn: torch.Tensor) -> torch.Tensor:
+    """Each flit's protection code from its payload lanes (..., L) and the
+    syndrome masks (code_bits, L): bit ``j`` is the parity of
+    ``payload & syn[j]`` (int64, below ``2^code_bits``)."""
+    par = popcount32(payload[..., None, :] & syn).sum(-1) & 1
+    return (par << torch.arange(syn.shape[0], device=syn.device)).sum(-1)
+
+
+def _flip_mask(h: torch.Tensor, hit: torch.Tensor, lanes: int) -> torch.Tensor:
+    """The one-bit XOR mask, (..., L) int32, of each flit ``hit`` marks:
+    lane and bit from a second hash of its link hash ``h``."""
+    bitpos = _mix32(h ^ 0x632BE5AB) % (32 * lanes)
+    word = _as_int32(torch.ones_like(bitpos) << (bitpos % 32))
+    lane_ax = torch.arange(lanes, device=h.device)
+    sel = (lane_ax == (bitpos // 32)[..., None]) & hit[..., None]
+    return torch.where(sel, word[..., None], 0)
+
+
 def plain_step(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
                mesh_key, count_headers: bool) -> SimState:
     """One router cycle for every lane, in eager PyTorch.
@@ -351,15 +450,26 @@ def plain_step(state: SimState, wire: Wire, mc_nodes: torch.Tensor,
 
 
 def tracked_step(state: SimState, ledger: Ledger, wire: Wire,
-                 mc_nodes: torch.Tensor, mesh_key, count_headers: bool):
+                 mc_nodes: torch.Tensor, mesh_key, count_headers: bool,
+                 faults=None):
     """:func:`plain_step` with the reference's packet ledgers
     (``_make_step(track=True)``, and ``timestamps=True`` when ``ledger``
     holds the time ledgers): the FIFOs and the wire carry a packet-id lane
     after the sideband; a tail flit ejecting adds one to its id's
     ``eject_pkt`` and stamps ``eject_time`` with the cycle (max); a header
-    flit leaving its NI stamps ``inj_time`` (min). Ids past the ledger go
-    to its dump slot. Returns ``(state, ledger)``, both new."""
-    return _step(state, ledger, wire, mc_nodes, mesh_key, count_headers)
+    flit leaving its NI stamps ``inj_time`` (min). Ids past the ledger, or
+    negative, go to its dump slot. Returns ``(state, ledger)``, both new.
+
+    ``faults`` (a ``noc.faults.StepFaults``; the ledger must hold the time
+    and fault ledgers) is the reference's ``_make_step(faults=)``: routes
+    from the detour table, a seeded one-bit flip of a winner's payload
+    (before the link recorder, ``link_last``, the push and the ejection
+    check) and of the injected flit (before the NI recorder and the
+    write), each hash of (seed, this lane's cycle, link id) below the
+    rate's threshold; ``flip_pkt`` counts flips, ``bad_pkt`` the ejected
+    flits whose protection code (sideband bits 16+) no longer matches."""
+    return _step(state, ledger, wire, mc_nodes, mesh_key, count_headers,
+                 faults)
 
 
 def _ledger_index(mask: torch.Tensor, pkt: torch.Tensor,
@@ -374,7 +484,8 @@ def _ledger_index(mask: torch.Tensor, pkt: torch.Tensor,
 
 
 def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
-          mc_nodes: torch.Tensor, mesh_key, count_headers: bool):
+          mc_nodes: torch.Tensor, mesh_key, count_headers: bool,
+          faults=None):
     rows, cols, v, d, l = mesh_key
     nr, p = rows * cols, NUM_PORTS
     lf = state.fifo.shape[-1]
@@ -390,6 +501,18 @@ def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
     m = wire.length.shape[1]
     t_cap = wire.wire.shape[2]
     bidx = torch.arange(b, device=state.fifo.device)[:, None]
+    fc, flips, pbits = None, False, 0
+    if faults is not None:
+        if (ledger is None or ledger.inj_time is None
+                or ledger.flip_pkt is None):
+            raise ValueError("fault injection requires a ledger with the "
+                             "timestamps and the fault ledgers "
+                             "(make_ledger(timestamps=True, "
+                             "fault_ledgers=True))")
+        fc = _fault_consts(mesh_key, faults, m, state.fifo.device)
+        flips, pbits = fc["flips"], fc["pbits"]
+        if flips:
+            cyc_h = _mul32(state.cycle.to(torch.int64), 0x9E3779B9)[:, None]
 
     head_r = state.head[:, :nr]                         # (B, NR, P, V)
     count_r = state.count[:, :nr]
@@ -401,14 +524,19 @@ def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
     fside = fifo_rows[:, :, l].gather(1, front_row).reshape(b, nr, p, v)
     fd = fside & _DEST_MASK
 
-    # --- route computation (X-Y, closed form) ---
-    dr, dc = fd // cols, fd % cols
-    rrow, rcol = g["rrow"], g["rcol"]
-    out_port = torch.where(
-        dc > rcol, PORT_E, torch.where(
-            dc < rcol, PORT_W, torch.where(
-                dr > rrow, PORT_S, torch.where(
-                    dr < rrow, PORT_N, PORT_LOCAL)))).to(torch.int32)
+    # --- route computation (X-Y, closed form; the detour table under
+    # faults, where garbage dests of empty FIFOs are masked by ``valid``) ---
+    if fc is None:
+        dr, dc = fd // cols, fd % cols
+        rrow, rcol = g["rrow"], g["rcol"]
+        out_port = torch.where(
+            dc > rcol, PORT_E, torch.where(
+                dc < rcol, PORT_W, torch.where(
+                    dr > rrow, PORT_S, torch.where(
+                        dr < rrow, PORT_N, PORT_LOCAL)))).to(torch.int32)
+    else:
+        out_port = fc["froute"][
+            (g["r2"][..., None] * nr + torch.clamp(fd, max=nr - 1)).long()]
 
     # --- credit check: downstream FIFO (same VC) has space ---
     is_eject = out_port == PORT_LOCAL
@@ -451,6 +579,13 @@ def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
     win_head = state.head.reshape(b, -1).gather(1, win_pv)
     win_row = win_pv * d + win_head
     mv = fifo_rows[bidx, win_row].reshape(b, nr, p, lf)
+    if flips:
+        # Router-link soft error: the winner's payload traversing the link
+        # this cycle, before every reader of ``mv`` below.
+        h = _mix32(fc["lid_hash"][None, :nr * p] ^ cyc_h).reshape(b, nr, p)
+        hit = has & (h < fc["thresh"])
+        mv = torch.cat([mv[..., :l] ^ _flip_mask(h, hit, l), mv[..., l:]],
+                       dim=-1)
     mv_side = mv[..., l]
     mv_meta = (mv_side >> SIDE_META_SHIFT) & _META_MASK
 
@@ -475,6 +610,7 @@ def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
 
     # --- conservation ledger: tail flits ejecting at their destination ---
     if ledger is not None:
+        flip_pkt, bad_pkt = ledger.flip_pkt, ledger.bad_pkt
         npcap = ledger.eject_pkt.shape[1] - 1
         ej_tail = has & g["o_local"] & ((mv_meta & META_TAIL) > 0)
         lidx = _ledger_index(ej_tail, mv[..., l + 1], npcap)
@@ -487,6 +623,21 @@ def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
             eject_time = eject_time.scatter_reduce(
                 1, lidx, torch.where(ej_tail, state.cycle[:, None, None],
                                      -1).reshape(b, -1), reduce="amax")
+        if flips:
+            # Ground truth: every flip marks its packet, whatever the code.
+            flip_pkt = flip_pkt.scatter_add(
+                1, _ledger_index(hit, mv[..., l + 1], npcap),
+                hit.reshape(b, -1).to(torch.int32))
+        if pbits:
+            # Detection at ejection: the code re-derived over the payload
+            # against the carried sideband bits. The codes are linear, so a
+            # mismatch depends on the flip mask alone, never the payload.
+            carried = (mv_side >> 16) & ((1 << pbits) - 1)
+            mism = (has & g["o_local"]
+                    & (protection_code(mv[..., :l], fc["syn"]) != carried))
+            bad_pkt = bad_pkt.scatter_add(
+                1, _ledger_index(mism, mv[..., l + 1], npcap),
+                mism.reshape(b, -1).to(torch.int32))
 
     # --- injection: one flit per MC per cycle into the local in-port ---
     ptr = state.inj_ptr
@@ -497,11 +648,20 @@ def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
     iside = iw[..., l]
     imeta = (iside >> SIDE_META_SHIFT) & _META_MASK
     ivc = iside >> SIDE_VC_SHIFT
+    if pbits:
+        ivc = ivc & (MAX_VCS - 1)   # protection codes ride bits 16+
     head2_flat = head2.reshape(b, -1)
     count2_flat = count2.reshape(b, -1)
     mc_pv = ((mc_nodes * p + PORT_LOCAL) * v + ivc).long()
     mc_cnt = count2_flat.gather(1, mc_pv)
     can = active & (mc_cnt < d)
+    if flips:
+        # NI-link soft error on the flit entering the mesh, before the
+        # write and the NI recorder.
+        ih = _mix32(fc["lid_hash"][None, nr * p:] ^ cyc_h)
+        ihit = can & (ih < fc["thresh"])
+        iw = torch.cat([iw[..., :l] ^ _flip_mask(ih, ihit, l), iw[..., l:]],
+                       dim=-1)
     inj_pv = torch.where(can, mc_pv, (nr * p + PORT_LOCAL) * v + ivc.long())
     islot = (head2_flat.gather(1, inj_pv) + count2_flat.gather(1, inj_pv)) % d
 
@@ -539,7 +699,11 @@ def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
             inj_time = inj_time.scatter_reduce(
                 1, tidx, torch.where(inj_hdr, state.cycle[:, None],
                                      _TIME_UNSET), reduce="amin")
-        ledger = Ledger(eject_pkt, inj_time, eject_time)
+        if flips:
+            flip_pkt = flip_pkt.scatter_add(
+                1, _ledger_index(ihit, iw[..., l + 1], npcap),
+                ihit.to(torch.int32))
+        ledger = Ledger(eject_pkt, inj_time, eject_time, flip_pkt, bad_pkt)
 
     total = wire.length.sum(dim=1, dtype=torch.int32)
     drained_at = torch.where((state.drained_at < 0) & (ejected >= total),
@@ -552,13 +716,21 @@ def _step(state: SimState, ledger: Optional[Ledger], wire: Wire,
 
 
 def _resolve_backend(backend: str, device: torch.device,
-                     track: bool = False) -> str:
+                     track: bool = False, faults: bool = False) -> str:
     """``auto`` -> the kernel for CUDA tensors, the plain step for CPU
     tensors and for every drain with a packet ledger (``track``: the
-    conservation check or the timestamps), which the kernel does not carry.
-    An explicit ``cuda`` with a ledger, or on CPU tensors, raises."""
+    conservation check or the timestamps) or with faults, which the kernel
+    does not carry. An explicit ``cuda`` with either, or on CPU tensors,
+    raises."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "cuda" and faults:
+        raise ValueError(
+            "backend='cuda' cannot inject faults: the Hopper router kernel "
+            "has no fault hooks and no packet ledger, as the reference's "
+            "Pallas step has none. Use backend='auto' (a fault drain runs "
+            "the plain step on the traffic's device).")
+    track = track or faults
     if backend == "cuda" and track:
         raise ValueError(
             "backend='cuda' cannot honor check_conservation / timestamps: "

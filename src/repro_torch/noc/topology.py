@@ -9,8 +9,9 @@ Port numbering (inputs and outputs symmetric):
                                  output side: ejection to the PE)
 
 MC placements (``edge``/``corner``/``interleaved``) and the packet->MC
-affinity tables are the reference's, copied. Fault routing belongs to a
-later slice of the port (ROADMAP queue A, item 13).
+affinity tables are the reference's, copied, and so is the fault routing:
+the alive-channel mask and the detour table around dead links and routers
+(a host-side BFS, as in the reference).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ __all__ = ["NocConfig", "PORT_N", "PORT_E", "PORT_S", "PORT_W", "PORT_LOCAL",
            "NUM_PORTS", "OPPOSITE", "xy_route", "neighbor_table", "PAPER_NOCS",
            "PLACEMENTS", "AFFINITIES", "mc_placement", "make_noc",
            "mesh_by_name", "mean_hop_counts", "xy_link_loads",
-           "affinity_mc_table", "packet_mean_hops"]
+           "affinity_mc_table", "packet_mean_hops", "alive_link_mask",
+           "fault_route_table"]
 
 PORT_N, PORT_E, PORT_S, PORT_W, PORT_LOCAL = 0, 1, 2, 3, 4
 NUM_PORTS = 5
@@ -294,3 +296,96 @@ def mesh_by_name(name: str) -> NocConfig:
             "or a 'RxC_mcN' spec")
     rows, cols, mcs = map(int, m.groups())
     return make_noc(rows, cols, mcs)
+
+
+def alive_link_mask(cfg: NocConfig, dead_links: Tuple[Tuple[int, int], ...] = (),
+                    dead_routers: Tuple[int, ...] = ()) -> np.ndarray:
+    """``(NR, 4)`` bool: which inter-router out-directions survive the hard
+    faults. A dead link ``(router, out_port)`` kills the bidirectional
+    channel; a dead router kills all four of its channels. Directions off
+    the mesh edge are dead by construction."""
+    nr = cfg.num_routers
+    nb = neighbor_table(cfg).numpy()
+    alive = nb[:, :4] >= 0
+    for router, port in dead_links:
+        if not (0 <= router < nr and 0 <= port < 4):
+            raise ValueError(f"dead link ({router}, {port}) out of range for "
+                             f"a {cfg.rows}x{cfg.cols} mesh")
+        other = int(nb[router, port])
+        if other < 0:
+            raise ValueError(f"dead link ({router}, {port}) points off the "
+                             "mesh edge - no physical channel there")
+        alive[router, port] = False
+        alive[other, int(OPPOSITE[port])] = False
+    for router in dead_routers:
+        if not 0 <= router < nr:
+            raise ValueError(f"dead router {router} out of range")
+        alive[router, :] = False
+        for port in range(4):
+            other = int(nb[router, port])
+            if other >= 0:
+                alive[other, int(OPPOSITE[port])] = False
+    return alive
+
+
+def fault_route_table(cfg: NocConfig,
+                      dead_links: Tuple[Tuple[int, int], ...] = (),
+                      dead_routers: Tuple[int, ...] = ()):
+    """``(table, reachable)``: the out-port per (router, dest), (NR, NR)
+    int32, and whether a packet injected at ``src`` can reach ``dest``.
+
+    The X-Y table, repaired only where the X-Y path is broken: a router
+    whose whole X-Y path to the destination is alive keeps its X-Y port
+    (with no hard faults the table is :func:`xy_route`'s), and a broken
+    but reachable entry steps to a neighbor strictly closer in BFS
+    distance (X-Y port first, then N/E/S/W). Entries of unreachable pairs
+    keep their X-Y port and mean nothing: callers drop such packets."""
+    nr = cfg.num_routers
+    alive = alive_link_mask(cfg, dead_links, dead_routers)
+    nb = neighbor_table(cfg).numpy()
+    dead_r = np.zeros(nr, bool)
+    dead_r[list(dead_routers)] = True
+    table = xy_route(cfg).numpy().copy()
+    reachable = np.zeros((nr, nr), dtype=bool)
+    unreach = nr + 1
+    rows = np.arange(nr) // cfg.cols
+    cols = np.arange(nr) % cfg.cols
+    for d in range(nr):
+        if dead_r[d]:
+            continue
+        # BFS distance to d over alive channels (killed both ways, so the
+        # reverse search from d is forward reachability to d).
+        dist = np.full(nr, unreach, np.int32)
+        dist[d] = 0
+        frontier = [d]
+        while frontier:
+            nxt = []
+            for cur in frontier:
+                for port in range(4):
+                    n = int(nb[cur, port])
+                    if n >= 0 and alive[cur, port] and dist[n] == unreach:
+                        dist[n] = dist[cur] + 1
+                        nxt.append(n)
+            frontier = nxt
+        reachable[:, d] = dist < unreach
+        # X-Y-intact routers, nearest first: each X-Y hop lands closer.
+        good = np.zeros(nr, bool)
+        good[d] = True
+        manhattan = np.abs(rows - rows[d]) + np.abs(cols - cols[d])
+        for r in np.argsort(manhattan, kind="stable"):
+            if r == d:
+                continue
+            port = int(table[r, d])
+            n = int(nb[r, port])
+            good[r] = n >= 0 and alive[r, port] and good[n]
+        for r in range(nr):
+            if r == d or good[r] or dist[r] == unreach:
+                continue
+            prefs = [int(table[r, d])]
+            prefs += [p for p in range(4) if p not in prefs]
+            for port in prefs:
+                n = int(nb[r, port])
+                if n >= 0 and alive[r, port] and dist[n] == dist[r] - 1:
+                    table[r, d] = port
+                    break
+    return table, reachable

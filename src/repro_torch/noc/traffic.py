@@ -46,7 +46,7 @@ __all__ = ["LayerTraffic", "build_traffic", "build_traffic_batch",
            "pad_traffic_length", "stack_traffics", "conv_layer_traffic",
            "linear_layer_traffic", "build_result_traffic", "layer_results",
            "result_values", "DEFAULT_RESULT_WINDOW", "COMPRESSIONS",
-           "compression_overhead"]
+           "compression_overhead", "filter_packets"]
 
 # One sweep variant: an ordering transform plus an optional value->wire-dtype
 # quantizer (None transmits raw float32 words).
@@ -338,6 +338,57 @@ def pad_traffic_length(traffic: Traffic, t: int) -> Traffic:
         meta=F.pad(traffic.meta, (0, extra)),
         vc=F.pad(traffic.vc, (0, extra)),
         pkt=F.pad(traffic.pkt, (0, extra)))
+
+
+def filter_packets(traffic: Traffic, keep_ids) -> Traffic:
+    """Keep only the flits of the given packet ids, compacting each stream.
+
+    ``keep_ids``: packet ids to retain (ints, or a boolean mask of length
+    ``num_packets``). Each stream's survivors slide forward in their order,
+    ``length`` shrinks, the tail is zero padding, and ``num_packets`` is
+    kept (surviving packets keep their ids). The fault drains use it to
+    drop unreachable packets and to build retransmissions from the clean
+    flits. Unbatched Traffic only; the result lies on the traffic's
+    device."""
+    if traffic.length.dim() != 1:
+        raise ValueError("filter_packets wants an unbatched Traffic "
+                         "(use .variant(i) on a batched one)")
+    npkt = int(traffic.num_packets)
+    if npkt < 0:
+        raise ValueError("filter_packets needs num_packets metadata "
+                         "(hand-built Traffic must set it)")
+    keep_ids = np.asarray(keep_ids)
+    if keep_ids.dtype == bool:
+        keep_pkt = keep_ids
+        if keep_pkt.shape != (npkt,):
+            raise ValueError(f"boolean keep mask must have shape ({npkt},), "
+                             f"got {keep_pkt.shape}")
+    else:
+        keep_pkt = np.zeros(npkt, bool)
+        keep_pkt[keep_ids.astype(np.int64)] = True
+    lengths = traffic.length.cpu().numpy().astype(np.int64)
+    pkt = traffic.pkt.cpu().numpy()
+    m, t = pkt.shape
+    valid = np.arange(t)[None, :] < lengths[:, None]
+    keep = valid & keep_pkt[np.clip(pkt, 0, npkt - 1)]
+    # Stable compaction: kept flits first, in their order.
+    order = np.argsort(~keep, axis=1, kind="stable")
+    new_len = keep.sum(axis=1).astype(np.int32)
+    live = np.arange(t)[None, :] < new_len[:, None]
+    dev = traffic.words.device
+    idx = torch.as_tensor(order, device=dev)
+    live_t = torch.as_tensor(live, device=dev)
+
+    def take(a):
+        return torch.where(live_t, a.gather(1, idx), 0).to(torch.int32)
+
+    words = traffic.words.gather(
+        1, idx[..., None].expand(-1, -1, traffic.words.shape[-1]))
+    return Traffic(
+        words=torch.where(live_t[..., None], words, 0).to(torch.int32),
+        dest=take(traffic.dest), meta=take(traffic.meta),
+        vc=take(traffic.vc), pkt=take(traffic.pkt),
+        length=torch.as_tensor(new_len, device=dev), num_packets=npkt)
 
 
 def stack_traffics(traffics: Sequence[Traffic]) -> Traffic:

@@ -123,18 +123,42 @@ those paths against its plain PyTorch version:
                lanes, at one, and at one with no flips or codes, the
                device's idle share over 128 faulty cycles at three lanes
                (one profiler window), and the phase's wall;
-11. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+11. serving  - benchmarks/serving.py's DarkNet grid whole (trained DarkNet, one
+               glyph image, 16x16_mc16, O0/O1/O2, fixed8, 8 packets a layer,
+               the result phase; loads 1 / 4 / 16 x 8 inferences, compute
+               latency 32, uniform arrivals, chunk 1,024; rates 0 / 1e-3 / 5e-3
+               under crc8; deadline 20,000, admit_queue_depth 8) through
+               ``run_serving(..., check_conservation=True)`` (its closed-loop
+               drains in one process a host core, up to one a drain): first the
+               gated step's ms a cycle at 16x16 over 1,024 cycles of the load-1
+               request drain, clean and at 5e-3 crc8 (one lane each), the
+               grid's projected drain time, and the device's idle share over
+               128 profiled gated cycles; then all 9 points' schedule columns
+               (throughput, p50 / p99 / mean latency, completed, truncated,
+               both drain cycles, SLO attainment, goodput, shed, failed), the
+               combo's saturation throughput and monotonicity verdicts, and the
+               3 rows' cycles, flits and result columns equal to
+               experiments/serving_darknet.json, BT totals printed beside the
+               record's and below 2^31, and 90,112 gated cycles stepped; the
+               load-1 rate-0 point again with ``record_bt=True`` (the canonical
+               phase drains through the router kernel == the O0 row's total_bt,
+               cycles, flits and result columns); one trained-LeNet point that
+               sheds under faults (4x4_mc2, 8 packets a layer, 6 inferences at
+               load 8, admit_queue_depth 2, 5e-3 crc8, chunk 256), every
+               OnlineResult field equal on the card and the CPU;
+12. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
                the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
                the weight stream, each result == the plain version's;
-12. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-6 and 8-11,
+13. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6 and 8-12,
                read after); each CUDA ``descending_perm`` call of phases
                4-5 exactly one launch of the window-order kernel; the
                compression cell launched K1, the chain and its preamble,
-               the faults cell K1 and the window order;
-13. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+               the faults cell and the serving grid K1 and the window
+               order;
+14. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
                the plain versions on the CPU, and 4x4_mc2 and 8x8_mc4 x
@@ -143,17 +167,17 @@ those paths against its plain PyTorch version:
                on the CPU for both) likewise, and the same grid at fixed8
                with compression none and msr: equal rows, both phases'
                escape-bit columns included;
-14. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
+15. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
                LeNet drains at 4x4_mc2, 8x8_mc4 and 8x8_mc8: every
                candidate's rows equal (enforced by autotune_drain), the
                timings and winners printed and written beside the report
                (``drain_h100.json``, the card named in it);
-15. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
+16. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
                grid with none/msr and the result phase: its drains run the
                plain step on the card (printed), its rows equal the router
                kernel's; a duplicated packet id refused; one drain's
                timestamp ledgers equal on the card and the CPU;
-16. timing   - each kernel at its path's shapes beside its plain version,
+17. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
@@ -292,6 +316,38 @@ FAULT_SCHEDULE_COLUMNS = (
     "transmission_rounds", "flip_events", "silent_corrupt",
     "conservation_ok")
 FAULT_HARD = {"dead_link": (106, 0), "dead_router": (102, 4)}
+# Serving: benchmarks/serving.py's DarkNet grid (_darknet_grid(): trained
+# DarkNet, one glyph image, 16x16_mc16, edge, round-robin, O0/O1/O2,
+# pattern, fixed8, 8 packets a layer, the result phase; loads 1 / 4 / 16 x
+# 8 inferences, compute latency 32, uniform arrivals, chunk 1,024; rates 0 /
+# 1e-3 / 5e-3 under crc8, seed 0, 3 retries, ACK latency 32; deadline
+# 20,000, admit_queue_depth 8), recorded in experiments/serving_darknet.json.
+# Its timing never reads a payload value, so every point's columns below
+# are exact targets; the BT columns depend on the image (ROADMAP C2).
+SERVING_DARKNET = dict(
+    meshes=("16x16_mc16",), transforms=("O0", "O1", "O2"),
+    tiebreaks=("pattern",), precisions=("fixed8",), models=("darknet",),
+    max_packets_per_layer=8, result_phase=True, offered_loads=(1.0, 4.0, 16.0),
+    serving_inferences=8, compute_latency=32, arrival="uniform", chunk=1024,
+    fault_rates=(0.0, 1e-3, 5e-3), fault_protect="crc8", deadline=20000,
+    admit_queue_depth=8)
+SERVING_POINT_COLUMNS = (
+    "throughput", "p50_latency", "p99_latency", "mean_latency", "completed",
+    "truncated", "request_drain_cycle", "result_drain_cycle",
+    "slo_attainment", "goodput", "shed", "failed")
+SERVING_COMBO_COLUMNS = ("saturation_tput", "latency_monotone",
+                         "slo_monotone_in_fault")
+SERVING_ROW_COLUMNS = ("cycles", "flits", "result_cycles", "result_flits",
+                       "overhead_bits", "result_overhead_bits")
+# Gated cycles the grid steps: whole 1,024-cycle chunks of both phases at
+# each point and of the back-to-back probe, 61,440 of them faulty.
+SERVING_STEPPED = 90_112
+SERVING_FAULTY_CYCLES, SERVING_CLEAN_CYCLES = 61_440, 28_672
+# One small point with the restart protocol and faults: trained LeNet at
+# 4x4_mc2, 8 packets a layer, 6 inferences at load 8, admit_queue_depth 2,
+# rate 5e-3 under crc8, chunk 256.
+SERVING_LENET = dict(mesh="4x4_mc2", max_packets=8, inferences=6, load=8.0,
+                     admit_queue_depth=2, rate=5e-3, chunk=256)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
 # and the non-tensor 32-bit rate, used for 32-bit integer ALU work too.
 HBM_BYTES_PER_S = 3.35e12
@@ -778,6 +834,260 @@ def run_faults_cell(layers, card: str, device: str = "cuda") -> dict:
             "zero_fault_identical": pin, "ms_per_cycle": ms_cycle,
             "cycles": {k: v[1] for k, v in timed.items()},
             "wall_s": wall, "single": single, "batch": batch, "cfg": cfg}
+
+
+def o0_phase_traffic(layers, cfg, max_packets: int, device: str):
+    """One inference's O0 fixed8 request and result traffic (unbatched),
+    as ``run_serving`` builds it."""
+    from repro_torch.core.wire import by_name
+    from repro_torch.noc.traffic import (build_result_traffic,
+                                         build_traffic_batch)
+    from repro_torch.quant import quantize_fixed8
+    o0 = [(by_name("O0"), lambda t: quantize_fixed8(t).values)]
+    req = build_traffic_batch(layers, cfg, o0,
+                              max_packets_per_layer=max_packets,
+                              device=device).variant(0)
+    res = build_result_traffic(layers, cfg, o0,
+                               max_packets_per_layer=max_packets,
+                               device=device).variant(0)
+    return req, res
+
+
+def same_online(a, b) -> list:
+    """Names of the OnlineResult fields (and properties) that differ."""
+    names = [f.name for f in dataclasses.fields(a)]
+    names += ["completed", "throughput", "num_shed", "num_failed",
+              "slo_attainment", "goodput"]
+    return [n for n in names
+            if not same_fault_field(getattr(a, n), getattr(b, n))]
+
+
+def run_serving_phase(dlayers, llayers, card: str,
+                      device: str = "cuda") -> dict:
+    """benchmarks/serving.py's DarkNet grid whole on the card, after timing
+    the gated step at 16x16; then the load-1 rate-0 point again with the
+    canonical phase drains through the router kernel, and one LeNet point
+    that sheds under faults on the card and on the CPU. Any mismatch with
+    experiments/serving_darknet.json fails the script. ``device="cpu"``
+    runs the same checks on the plain path (no profiler window, and the
+    LeNet point compared with itself)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.noc import SweepGrid, faults, online, run_serving
+    from repro_torch.noc.topology import mesh_by_name
+    from repro_torch.noc.traffic import concat_inferences
+
+    with open(os.path.join(REPO, "experiments", "serving_darknet.json")) as f:
+        record = json.load(f)
+    rsrv = record["stats"]["serving"]
+    t_phase = time.perf_counter()
+    g = SERVING_DARKNET
+    cfg = mesh_by_name(g["meshes"][0])
+    req, res = o0_phase_traffic(dlayers, cfg, g["max_packets_per_layer"],
+                                device)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    # Measure first: 1,024 gated cycles of the load-1 request drain, clean
+    # and at rate 5e-3 under crc8, one lane each (a 64-cycle warm-up each).
+    k = g["serving_inferences"]
+    arr = online.ArrivalProcess(g["arrival"], 1.0).times(k)
+    cat = concat_inferences(req, k)
+    m = int(req.length.shape[0])
+    rel = np.broadcast_to(arr[None, :], (m, k))
+    inc = np.broadcast_to(req.length.cpu().numpy().astype(np.int64)[:, None],
+                          (m, k))
+    nodes = np.asarray(cfg.mc_nodes, np.int32)
+    fmodel = faults.FaultModel(rate=5e-3, protect=g["fault_protect"],
+                               seed=0, max_retries=3, ack_latency=32)
+
+    def clean(cycles):
+        return online._drain_gated(
+            cfg, cat, nodes, rel, inc, count_headers=True, chunk=cycles,
+            max_cycles=cycles, allow_truncation=True)
+
+    def faulty(cycles):
+        return faults.drain_with_retries(
+            cfg, cat, fmodel, mc_nodes=nodes, release=rel, inc=inc,
+            chunk=cycles, max_cycles=cycles, allow_truncation=True,
+            device=device)
+
+    ms_cycle = {}
+    for name, fn in (("clean", clean), ("faulty", faulty)):
+        fn(64)
+        sync()
+        t0 = time.perf_counter()
+        fn(1024)
+        sync()
+        ms_cycle[name] = (time.perf_counter() - t0) / 1024 * 1e3
+    projected = (SERVING_FAULTY_CYCLES * ms_cycle["faulty"]
+                 + SERVING_CLEAN_CYCLES * ms_cycle["clean"]) / 1e3
+    print(f"  [{card}] gated step at 16x16, one lane: "
+          f"{ms_cycle['clean']:.3f} ms a cycle clean, "
+          f"{ms_cycle['faulty']:.3f} ms with flips and crc8 (1,024 cycles "
+          f"each); projected grid drains {projected:.1f} s for "
+          f"{SERVING_FAULTY_CYCLES} faulty + {SERVING_CLEAN_CYCLES} clean "
+          "cycles", flush=True)
+
+    # The device's idle share over 128 gated cycles (clean, one lane) in
+    # one profiler window.
+    share = busy = window_ms = None
+    if device == "cuda":
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            clean(128)
+            sync()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        spans = device_spans(prof)
+        busy = busy_us(spans) / 1e3
+        share = (1 - busy / window_ms) if spans else None
+        print(f"  [{card}] 128 gated cycles in a profiler window: device "
+              f"idle share "
+              f"{'not measured' if share is None else f'{share:.4f}'} "
+              f"(busy {busy:.3f} ms of {window_ms:.3f} ms)", flush=True)
+
+    # The grid whole, as the record was made.
+    t0 = time.perf_counter()
+    rep = run_serving(SweepGrid(**g, device=device), lambda _name: dlayers,
+                      check_conservation=True)
+    sync()
+    grid_s = time.perf_counter() - t0
+    srv = rep.stats["serving"]
+    if len(srv["points"]) != len(rsrv["points"]):
+        fail(f"serving grid made {len(srv['points'])} points, the record "
+             f"{len(rsrv['points'])}")
+    for p, q in zip(srv["points"], rsrv["points"]):
+        bad = {c: (p[c], q[c]) for c in SERVING_POINT_COLUMNS + (
+            "offered_load", "fault_rate") if p[c] != q[c]}
+        if bad:
+            fail(f"serving point load {q['offered_load']} rate "
+                 f"{q['fault_rate']}: (port, record) differ in {bad}")
+        print(f"  [{card}] load {p['offered_load']:g} rate "
+              f"{p['fault_rate']:g}: p50 {p['p50_latency']} p99 "
+              f"{p['p99_latency']} mean {p['mean_latency']} tput "
+              f"{p['throughput']} goodput {p['goodput']} slo "
+              f"{p['slo_attainment']} completed {p['completed']} truncated "
+              f"{p['truncated']} shed {p['shed']} failed {p['failed']} "
+              f"drains {p['request_drain_cycle']} / "
+              f"{p['result_drain_cycle']} (== record)", flush=True)
+    combo, rcombo = srv["combos"][0], rsrv["combos"][0]
+    bad = {c: (combo.get(c), rcombo.get(c)) for c in SERVING_COMBO_COLUMNS
+           if combo.get(c) != rcombo.get(c)}
+    if bad:
+        fail(f"serving combo: (port, record) differ in {bad}")
+    if len(rep.rows) != len(record["rows"]):
+        fail(f"serving grid made {len(rep.rows)} rows, the record "
+             f"{len(record['rows'])}")
+    for r, q in zip(rep.rows, record["rows"]):
+        bad = {c: (r[c], q[c]) for c in SERVING_ROW_COLUMNS if r[c] != q[c]}
+        if bad or r["transform"] != q["transform"]:
+            fail(f"serving row {q['transform']}: (port, record) differ in "
+                 f"{bad}")
+        for c in ("total_bt", "result_bt"):
+            if not 0 < r[c] < 2**31:
+                fail(f"serving row {r['transform']}: {c} {r[c]} outside "
+                     "(0, 2^31) (ROADMAP C5)")
+        print(f"  [{card}] row {r['transform']}: cycles {r['cycles']} flits "
+              f"{r['flits']} result {r['result_cycles']} / "
+              f"{r['result_flits']} (== record); total_bt {r['total_bt']} "
+              f"(record {q['total_bt']}) result_bt {r['result_bt']} (record "
+              f"{q['result_bt']}); adjusted reduction "
+              f"{r['adjusted_reduction_pct']:.3f} % (record "
+              f"{q['adjusted_reduction_pct']:.3f} %)", flush=True)
+    if srv["stepped_cycles"] != SERVING_STEPPED:
+        fail(f"the serving grid stepped {srv['stepped_cycles']} gated "
+             f"cycles, {SERVING_STEPPED} expected")
+    print(f"  [{card}] combo: saturation {combo['saturation_tput']} "
+          f"latency_monotone {combo['latency_monotone']} "
+          f"slo_monotone_in_fault {combo['slo_monotone_in_fault']} (== "
+          f"record); {srv['stepped_cycles']} gated cycles stepped; grid "
+          f"{grid_s:.3f} s (serving {srv['serving_s']} s in "
+          f"{srv['workers']} worker processes, {projected:.1f} s projected "
+          f"for one; rows {rep.stats['wall_s']} s)", flush=True)
+
+    # K1 on the path: the load-1 rate-0 point again with the canonical
+    # phase drains, which carry no ledger and run the router kernel.
+    k1 = {kk.name: kk for kk in ops.KERNELS}["router_step"]
+    k1_before = k1.launches
+    onl = online.simulate_online(
+        cfg, req, res, arrivals=online.ArrivalProcess(g["arrival"], 1.0),
+        num_inferences=k, compute_latency=g["compute_latency"],
+        chunk=g["chunk"], record_bt=True, check_conservation=False,
+        device=device)
+    k1_launches = k1.launches - k1_before
+    if device == "cuda" and k1_launches <= 0:
+        fail("the canonical phase drains did not launch the router kernel")
+    o0 = rep.row(transform="O0")
+    got = (onl.request.total_bt, onl.request.drain_cycle,
+           onl.request.injected, onl.result.total_bt,
+           onl.result.drain_cycle, onl.result.injected)
+    want = (o0["total_bt"], o0["cycles"], o0["flits"], o0["result_bt"],
+            o0["result_cycles"], o0["result_flits"])
+    if got != want:
+        fail(f"the canonical phase drains {got} != the O0 row {want}")
+    p0 = srv["points"][0]
+    if (onl.request_drain_cycle, onl.result_drain_cycle) != (
+            p0["request_drain_cycle"], p0["result_drain_cycle"]):
+        fail("the load-1 rate-0 point drained differently with record_bt")
+    print(f"  [{card}] load 1 / rate 0 with record_bt ({onl.stepped_cycles} "
+          f"gated cycles): canonical request "
+          f"(total_bt, cycles, flits) {got[:3]} and result {got[3:]} == the "
+          f"O0 row ({k1_launches} router-kernel launches)", flush=True)
+
+    # Shedding and faults: one LeNet point on the card and on the CPU.
+    L = SERVING_LENET
+    lcfg = mesh_by_name(L["mesh"])
+    lreq, lres = o0_phase_traffic(llayers, lcfg, L["max_packets"], device)
+    kw = dict(arrivals=online.ArrivalProcess("uniform", L["load"]),
+              num_inferences=L["inferences"], compute_latency=32,
+              chunk=L["chunk"], admit_queue_depth=L["admit_queue_depth"],
+              deadline=20000, check_conservation=True, record_bt=False)
+    t0 = time.perf_counter()
+    on_card = online.simulate_online(
+        lcfg, lreq, lres, faults=faults.FaultModel(rate=L["rate"],
+                                                   protect="crc8"),
+        device=device, **kw)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = online.simulate_online(
+        lcfg, lreq, lres, faults=faults.FaultModel(rate=L["rate"],
+                                                   protect="crc8"),
+        device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    diff = same_online(on_card, on_cpu)
+    if diff:
+        fail(f"the LeNet serving point differs between card and CPU in "
+             f"{diff}")
+    if on_card.num_shed < 1:
+        fail("the LeNet serving point shed nothing")
+    print(f"  [{card}] LeNet {L['mesh']} x {L['inferences']} at load "
+          f"{L['load']:g}, depth {L['admit_queue_depth']}, rate "
+          f"{L['rate']:g} crc8: shed {on_card.num_shed}, failed "
+          f"{on_card.num_failed}, completed {on_card.completed}, "
+          f"{on_card.stepped_cycles} gated cycles (replays included); every "
+          f"OnlineResult field equal on the card ({t_card:.3f} s) and the "
+          f"CPU ({t_cpu:.3f} s)", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"  [{card}] serving phase wall {wall:.3f} s", flush=True)
+    return {"points": srv["points"], "combos": srv["combos"],
+            "rows": rep.rows, "stats": {kk: v for kk, v in rep.stats.items()
+                                        if kk != "serving"},
+            "serving_s": srv["serving_s"],
+            "stepped_cycles": srv["stepped_cycles"], "grid_s": grid_s,
+            "ms_per_cycle": ms_cycle, "projected_s": projected,
+            "idle_share": share, "busy_ms": busy, "window_ms": window_ms,
+            "canonical_k1_launches": k1_launches,
+            "lenet_point": {"shed": on_card.num_shed,
+                            "failed": on_card.num_failed,
+                            "completed": on_card.completed,
+                            "stepped_cycles": on_card.stepped_cycles,
+                            "card_s": t_card, "cpu_s": t_cpu},
+            "wall_s": wall}
 
 
 def same_fault_field(a, b) -> bool:
@@ -1803,6 +2113,16 @@ def main() -> None:
                                 window_ms=window_ms)
 
     ops.reset_launch_counts()
+    with Phase("serving (DarkNet, 16x16_mc16, benchmarks/serving.py's "
+               "darknet grid)"):
+        # The grid's O1/O2 packetize launches the window order, its
+        # canonical phase drains the router kernel; the gated drains run
+        # the plain step (the kernel carries no ledger).
+        report["serving"] = run_serving_phase(dlayers, layers11, card)
+        serving_launches = {k.name: k.launches for k in ops.KERNELS}
+        report["serving"]["launches"] = serving_launches
+
+    ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
         # drives them (2^18 values in windows of 512), and on the trained
@@ -1857,6 +2177,7 @@ def main() -> None:
                  "darknet_full": dfull_launches,
                  "compression": comp_launches,
                  "faults": faults_launches,
+                 "serving": serving_launches,
                  "ordering_unit": unit_launches}
         launches = {k.name: sum(p[k.name] for p in paths.values())
                     for k in ops.KERNELS}
@@ -1887,7 +2208,8 @@ def main() -> None:
         for name, launched in (("darknet_fig13", fig13_launches),
                                ("darknet_full", dfull_launches),
                                ("compression", comp_launches),
-                               ("faults", faults_launches)):
+                               ("faults", faults_launches),
+                               ("serving", serving_launches)):
             for k in ("router_step", "descending_perm"):
                 if launched[k] <= 0:
                     fail(f"the {name} path did not launch {k}")

@@ -38,7 +38,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..core.wire import (PROTECTION_BITS, protection_overhead_bits,
                          protection_syndrome_masks)
-from .online import FAR_RELEASE, _drain_gated, _lanes_agree, _no_controller
+from .online import FAR_RELEASE, _drain_gated, _lanes_agree
 from .sim import (META_TAIL, SimResult, Traffic, Wire, _checked_mc,
                   _mc_array, _next_pow2, protection_code)
 from .topology import NocConfig, fault_route_table
@@ -256,10 +256,11 @@ def _check_lockstep(traffic: Traffic) -> None:
 def _drain_with_retries(cfg: NocConfig, traffic: Traffic, model: FaultModel,
                         mc_nodes: np.ndarray, release, inc,
                         count_headers: bool, chunk: int, max_cycles: int,
-                        allow_truncation: bool,
-                        backend: str) -> List[FaultDrain]:
+                        allow_truncation: bool, backend: str,
+                        controller=None) -> List[FaultDrain]:
     """The retry loop of :func:`drain_with_retries` over the lanes of a
-    batched Traffic (lockstep variants); one FaultDrain a lane."""
+    batched Traffic (lockstep variants); one FaultDrain a lane.
+    ``controller`` (one lane only) is consulted in round 0."""
     npkt = int(traffic.num_packets)
     m = int(traffic.length.shape[-1])
     spec = model.static()
@@ -293,8 +294,9 @@ def _drain_with_retries(cfg: NocConfig, traffic: Traffic, model: FaultModel,
 
     # --- never-release prefilter: gates pinned at FAR_RELEASE hold their
     # flits forever, so those packets stay STATUS_UNSENT and do not count
-    # toward the drain target.
-    if (np.asarray(rel0) >= int(FAR_RELEASE)).any():
+    # toward the drain target. Skipped under a controller, whose gates all
+    # start at the far sentinel and open as arrivals are admitted.
+    if controller is None and (np.asarray(rel0) >= int(FAR_RELEASE)).any():
         inc_arr = np.asarray(inc0, np.int64)
         cum = np.cumsum(inc_arr, axis=1)
         ngates = inc_arr.shape[1]
@@ -339,7 +341,7 @@ def _drain_with_retries(cfg: NocConfig, traffic: Traffic, model: FaultModel,
             cfg, cur, mc_nodes, cur_rel, cur_inc,
             count_headers=count_headers, chunk=chunk, max_cycles=max_cycles,
             allow_truncation=allow_truncation, faults=spec, state=state,
-            backend=backend)
+            controller=controller if rnd == 0 else None, backend=backend)
         drained = drained and rnd_drained
         lg = state[1]
         flip_now, bad_now = (
@@ -365,6 +367,11 @@ def _drain_with_retries(cfg: NocConfig, traffic: Traffic, model: FaultModel,
             "corrupt_packets": int(bad_ids.size),
             "drain_cycle": res[0].drain_cycle,
         })
+        if controller is not None and controller.restart_needed:
+            # Admission restart protocol: the caller replays the whole
+            # fault drain with the enlarged shed set and discards this one.
+            drained = False
+            break
         if not rnd_drained or not bad_ids.size or rnd == model.max_retries:
             break
         retries[bad_ids] += 1
@@ -451,13 +458,14 @@ def drain_with_retries(cfg: NocConfig, traffic: Traffic, model: FaultModel, *,
 
     release / inc: optional ``(M, K)`` gate schedule for round 0; default
         one gate per stream, open at cycle 0 (the offline drain).
-    controller: admission control belongs to the serving slice (ROADMAP
-        A14) and raises here.
+    controller: an admission controller (``online._AdmissionController``),
+        consulted in round 0 only: retries of admitted packets are never
+        shed. When it needs a restart the drain stops with ``drained``
+        false, for the caller to replay.
     backend: ``auto`` or ``plain`` run the tracked plain step on
         ``device`` (CUDA unless the caller passes ``device="cpu"``);
         ``cuda`` raises (the router kernel has no fault hooks).
     """
-    _no_controller(controller)
     npkt = int(traffic.num_packets)
     if npkt <= 0:
         raise ValueError("fault drains need Traffic with num_packets set")
@@ -467,7 +475,8 @@ def drain_with_retries(cfg: NocConfig, traffic: Traffic, model: FaultModel, *,
     mc = _checked_mc(cfg, mc_nodes, (m,))
     return _drain_with_retries(
         cfg, _lanes_on(traffic, device), model, mc, release, inc,
-        count_headers, chunk, max_cycles, allow_truncation, backend)[0]
+        count_headers, chunk, max_cycles, allow_truncation, backend,
+        controller)[0]
 
 
 def simulate_faulty(cfg: NocConfig, traffic: Traffic, model: FaultModel, *,

@@ -16,11 +16,19 @@ takes O0, O1, O2, O3 and O3a; the compression axis ``none`` and ``msr``
 count), whose escape records are charged like the recovery index.
 ``tune_path`` applies ``noc.tune``'s measured drain schedule per mesh, and
 ``run_sweep(check_conservation=True)`` drains with the packet ledger.
+:func:`run_serving` joins the rows with the closed-loop serving suite: one
+gated drain per (combo, offered load, fault rate) and a back-to-back
+saturation probe per combo (``noc.online``). ``out_path`` writes the rows,
+the grid and the stats as the reference's JSON artifact.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import multiprocessing
+import os
 import time
+from concurrent.futures import ProcessPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -29,21 +37,26 @@ from torch.profiler import record_function
 
 from .._device import DeviceLike, resolve_device
 from ..core import msr
-from ..core.wire import COMPRESSIONS, WireTransform, by_name
+from ..core.wire import (COMPRESSIONS, PROTECTION_BITS, WireTransform,
+                         by_name)
 from ..quant import quantize_fixed8
+from .online import (ARRIVAL_KINDS, ArrivalProcess, latency_percentiles,
+                     simulate_online)
 from .sim import BACKENDS, SimResult, Traffic, _resolve_backend, simulate_batch
 from .topology import (AFFINITIES, PLACEMENTS, NocConfig, affinity_mc_table,
                        mc_placement, mesh_by_name, packet_mean_hops,
                        xy_link_loads)
 from .traffic import (DEFAULT_RESULT_WINDOW, LayerTraffic, assemble_traffic,
-                      build_result_traffic, build_traffic_streamed_multi,
+                      build_result_traffic, build_traffic_batch,
+                      build_traffic_streamed_multi,
                       compression_overhead, ordered_payloads,
                       pad_traffic_length, payload_shapes, result_values,
                       stream_lengths)
 from .tune import load_tuned, schedule_for
 
-__all__ = ["SweepGrid", "SweepReport", "run_sweep", "recovery_overhead_bits",
-           "cached_ordered_payloads", "drain_estimate"]
+__all__ = ["SweepGrid", "SweepReport", "run_sweep", "run_serving",
+           "recovery_overhead_bits", "cached_ordered_payloads",
+           "drain_estimate"]
 
 Mesh = Union[str, NocConfig]
 LayersFn = Callable[[str], Sequence[LayerTraffic]]
@@ -60,8 +73,10 @@ _LATER = "a later slice of the port (ROADMAP queue A, item {})"
 class SweepGrid:
     """One declarative sweep: meshes x MC placements x packet->MC
     affinities x transforms x tiebreaks x precisions x models x
-    compression schemes, with an optional PE->MC result phase
-    (``repro.noc.sweep.SweepGrid`` without the serving and fault axes).
+    compression schemes, with an optional PE->MC result phase, and the
+    closed-loop serving and fault axes that :func:`run_serving` reads
+    (``run_sweep`` ignores them): ``repro.noc.sweep.SweepGrid`` field for
+    field, plus ``device``.
 
     meshes: PAPER_NOCS names, ``RxC_mcN`` specs, or NocConfig instances.
     placements: MC placement strategies (``topology.PLACEMENTS``); ``edge``
@@ -87,6 +102,18 @@ class SweepGrid:
     tune_path: a ``noc.tune`` winners table (JSON); each mesh found in it
         drains with its measured chunk and ``compact_ratio``, the others
         with ``chunk`` and 0.5. Scheduling only: the rows do not change.
+    offered_loads: serving load points in inferences per 1000 cycles
+        (empty: no serving suite); ``serving_inferences`` back-to-back
+        inferences a point, ``compute_latency`` cycles a PE, arrivals of
+        kind ``arrival`` (``online.ARRIVAL_KINDS``) seeded by
+        ``arrival_seed``.
+    fault_rates: soft-error rates crossed with every load point (rate 0
+        with no dead links drains the clean gated step); each faulty point
+        drains under ``fault_protect`` with ``fault_seed``,
+        ``fault_dead_links``, ``fault_max_retries`` retries and
+        ``fault_ack_latency``. ``deadline`` (cycles) turns on SLO
+        attainment, ``admit_queue_depth`` overload shedding
+        (``online.simulate_online``).
     device: where the sweep runs (CUDA unless ``"cpu"`` is given).
     """
 
@@ -108,6 +135,19 @@ class SweepGrid:
     result_window: Optional[int] = None
     backend: str = "auto"
     tune_path: Optional[str] = None
+    offered_loads: Sequence[float] = ()
+    serving_inferences: int = 8
+    compute_latency: int = 0
+    arrival: str = "uniform"
+    arrival_seed: int = 0
+    fault_rates: Sequence[float] = ()
+    fault_protect: str = "crc8"
+    fault_seed: int = 0
+    fault_dead_links: Sequence = ()
+    fault_max_retries: int = 3
+    fault_ack_latency: int = 32
+    deadline: Optional[int] = None
+    admit_queue_depth: Optional[int] = None
     device: Optional[str] = None
 
     def __post_init__(self):
@@ -145,6 +185,31 @@ class SweepGrid:
                 raise ValueError(
                     "compression 'msr' reads int8 payloads; drop precisions "
                     f"{sorted(nonint)} or sweep compression=('none',)")
+        if self.arrival not in ARRIVAL_KINDS:
+            raise ValueError(f"arrival must be one of {ARRIVAL_KINDS}, "
+                             f"got {self.arrival!r}")
+        if any(not load > 0 for load in self.offered_loads):
+            raise ValueError("offered_loads must be > 0 "
+                             f"(got {tuple(self.offered_loads)})")
+        if self.serving_inferences < 1:
+            raise ValueError("serving_inferences must be >= 1")
+        if self.compute_latency < 0:
+            raise ValueError("compute_latency must be >= 0")
+        if self.fault_protect not in PROTECTION_BITS:
+            raise ValueError(f"fault_protect must be one of "
+                             f"{sorted(PROTECTION_BITS)}, "
+                             f"got {self.fault_protect!r}")
+        if any(not 0.0 <= r <= 1.0 for r in self.fault_rates):
+            raise ValueError("fault_rates must lie in [0, 1] "
+                             f"(got {tuple(self.fault_rates)})")
+        if self.fault_max_retries < 0:
+            raise ValueError("fault_max_retries must be >= 0")
+        if self.fault_ack_latency < 1:
+            raise ValueError("fault_ack_latency must be >= 1")
+        if self.deadline is not None and self.deadline <= 0:
+            raise ValueError("deadline must be > 0 cycles when set")
+        if self.admit_queue_depth is not None and self.admit_queue_depth < 1:
+            raise ValueError("admit_queue_depth must be >= 1 when set")
 
     def variant_axes(self):
         """The per-shape-class variant list, in batch order."""
@@ -259,6 +324,7 @@ def drain_estimate(cfg: NocConfig, lengths: np.ndarray) -> float:
 
 
 def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
+              out_path: Optional[str] = None,
               check_conservation: bool = False, devices=None) -> SweepReport:
     """Execute every cell of ``grid``: one packetization per (mesh,
     placement, affinity, model, compression) combo and ONE batched request
@@ -277,7 +343,10 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
     ``/drain``, ``/result_packetize``, ``/result_drain``), the device
     synchronised before it ends: a profiler window over the call reads
     each stage's device idle share; with no profiler the spans cost
-    nothing measurable."""
+    nothing measurable.
+
+    ``out_path`` writes ``{"grid", "rows", "stats"}`` as JSON: the
+    reference's keys and values, and ``grid["device"]`` beside them."""
     if devices is not None:
         raise NotImplementedError("devices= arrives with " + _LATER.format(15))
     dev = resolve_device(grid.device)
@@ -583,4 +652,273 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
         stats["result_cycles"] = result_cycles
         stats["result_cycles_per_sec"] = (
             round(result_cycles / res_s, 1) if res_s else None)
-    return SweepReport(rows=rows, stats=stats)
+    report = SweepReport(rows=rows, stats=stats)
+    if out_path:
+        _write_json(out_path, grid, report)
+    return report
+
+
+def _grid_json(grid: SweepGrid) -> dict:
+    out = dataclasses.asdict(grid)
+    out["meshes"] = [_resolve_mesh(m)[0] for m in grid.meshes]
+    for key in ("placements", "affinity", "transforms", "tiebreaks",
+                "precisions", "models", "compression", "offered_loads"):
+        out[key] = list(out[key])
+    return out
+
+
+def _write_json(out_path: str, grid: SweepGrid,
+                report: SweepReport) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump({"grid": _grid_json(grid), "rows": report.rows,
+                   "stats": report.stats}, f, indent=1)
+
+
+def _serving_drain(task):
+    """One closed-loop drain of :func:`run_serving` (a process-pool task:
+    its traffic comes on the CPU and moves to ``kw["device"]``)."""
+    cfg, req, res, kw = task
+    return simulate_online(cfg, req, res, **kw)
+
+
+def _one_torch_thread() -> None:
+    torch.set_num_threads(1)
+
+
+def _serving_processes(dev: torch.device, n_tasks: int) -> int:
+    """How many processes :func:`run_serving`'s closed-loop drains run in.
+    On the card the gated step is bound by the host's launches (the device
+    idles most of each cycle), so the independent drains take one process
+    a host core; on the CPU the step is the host's work itself, and they
+    run in this process."""
+    if dev.type != "cuda":
+        return 1
+    return max(1, min(n_tasks, len(os.sched_getaffinity(0))))
+
+
+def _drain_all(tasks: list, processes: int) -> list:
+    """``_serving_drain`` of every task, in order: in this process, or in
+    ``processes`` spawned ones with one torch thread each (the traffic
+    travels as CPU copies: pickling a CPU tensor for the pool moves its
+    storage to shared memory, under anything else that reads it). Every
+    drain is the one the serial run gives."""
+    if processes == 1:
+        return [_serving_drain(t) for t in tasks]
+    tasks = [(cfg, *(Traffic(*(x.to("cpu", copy=True) for x in t[:6]),
+                             num_packets=t.num_packets) for t in (req, res)),
+              kw) for cfg, req, res, kw in tasks]
+    with ProcessPoolExecutor(
+            processes, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_one_torch_thread) as ex:
+        return list(ex.map(_serving_drain, tasks))
+
+
+def run_serving(grid: SweepGrid, layers_for_model: LayersFn, *,
+                out_path: Optional[str] = None,
+                check_conservation: bool = False,
+                devices="auto") -> SweepReport:
+    """The closed-loop ``serving`` suite: the BT sweep joined with an
+    offered-load latency sweep (the port of
+    ``repro.noc.sweep.run_serving``).
+
+    Runs :func:`run_sweep` (result phase forced on) for the per-transform
+    BT rows, then one gated closed-loop drain
+    (:func:`repro_torch.noc.online.simulate_online`) of the baseline
+    transform's traffic per (mesh, placement, affinity, model) combo,
+    offered load and fault rate, and a back-to-back saturation probe per
+    combo. Timing never reads payload values, so the load axis is priced
+    once per combo and every transform joins it by its BT.
+
+    ``stats["serving"]`` holds the reference's ``points`` (latency
+    percentiles, throughput, completed / truncated counts, gated drain
+    cycles; with the degradation axes also fault_rate, slo_attainment,
+    goodput, shed, failed), ``combos`` (``saturation_tput``,
+    ``latency_monotone`` over the unshed points at the lowest fault rate,
+    ``slo_monotone_in_fault`` with faults and a deadline, the BT join
+    ``transforms``) and ``serving_s``; the port adds ``stepped_cycles``,
+    the gated cycles every serving drain stepped (the saturation probes
+    and aborted admission replays included), and ``workers``, the
+    processes the closed-loop drains ran in: one on the CPU, and on the
+    card one a host core, up to one a drain (the gated step is bound by
+    the host's launches there).
+
+    devices: ``None`` or ``"auto"`` (one device, ``grid.device``); a list
+        of devices arrives with sharded drains (ROADMAP A15).
+    """
+    if devices not in (None, "auto"):
+        raise NotImplementedError(
+            "devices= arrives with " + _LATER.format(15))
+    if not grid.offered_loads:
+        raise ValueError("run_serving needs grid.offered_loads (offered "
+                         "load points in inferences per 1000 cycles)")
+    if grid.max_packets_per_layer is None:
+        raise ValueError("run_serving uses the one-shot packetizer; set "
+                         "max_packets_per_layer")
+    if set(grid.compression) != {"none"}:
+        raise ValueError(
+            "run_serving prices drain timing once per combo on the O0 "
+            "baseline packetization; the compression axis changes flit "
+            "geometry per scheme, so serving grids must keep "
+            "compression=('none',) (BT-only compression rows come from "
+            "run_sweep)")
+    base = (grid if grid.result_phase
+            else dataclasses.replace(grid, result_phase=True))
+    report = run_sweep(base, layers_for_model,
+                       check_conservation=check_conservation)
+
+    dev = resolve_device(grid.device)
+    t0 = time.perf_counter()
+    o0 = [(by_name(grid.baseline), _QUANTIZERS[grid.precisions[0]])]
+    prec0, tb0 = grid.precisions[0], grid.tiebreaks[0]
+    loads = sorted(grid.offered_loads)
+    frates = sorted(set(grid.fault_rates))
+    fault_axis = bool(frates)
+    if not frates:
+        frates = [0.0]
+    dead = tuple(tuple(int(x) for x in d) for d in grid.fault_dead_links)
+    degradation = (fault_axis or bool(dead) or grid.deadline is not None
+                   or grid.admit_queue_depth is not None)
+
+    def _fault_model(rate: float):
+        # Rate 0 with no dead links is the clean gated drain (no faults).
+        if rate == 0.0 and not dead:
+            return None
+        from .faults import FaultModel
+        return FaultModel(rate=rate, seed=grid.fault_seed,
+                          protect=grid.fault_protect, dead_links=dead,
+                          max_retries=grid.fault_max_retries,
+                          ack_latency=grid.fault_ack_latency)
+
+    online_kw = dict(num_inferences=grid.serving_inferences,
+                     compute_latency=grid.compute_latency,
+                     count_headers=grid.count_headers, chunk=grid.chunk,
+                     max_cycles=grid.max_cycles,
+                     check_conservation=check_conservation, record_bt=False,
+                     device=str(dev))
+    # Every combo's traffic, then its drains: one a (load, rate) point and
+    # the back-to-back probe last.
+    combo_keys, tasks = [], []
+    layer_cache: Dict[str, Sequence[LayerTraffic]] = {}
+    for mesh_name, base_cfg in [_resolve_mesh(m) for m in grid.meshes]:
+        for model in grid.models:
+            if model not in layer_cache:
+                layer_cache[model] = layers_for_model(model)
+            layers = layer_cache[model]
+            for pl in grid.placements:
+                for aff in grid.affinity:
+                    cfg = _place(base_cfg, pl)
+                    tbl = (affinity_mc_table(cfg) if aff == "nearest"
+                           else None)
+                    req = build_traffic_batch(
+                        layers, cfg, o0,
+                        max_packets_per_layer=grid.max_packets_per_layer,
+                        mc_table=tbl, device=dev).variant(0)
+                    res = build_result_traffic(
+                        layers, cfg, o0,
+                        max_packets_per_layer=grid.max_packets_per_layer,
+                        mc_table=tbl, result_window=grid.result_window,
+                        device=dev).variant(0)
+                    combo_keys.append({"mesh": mesh_name, "placement": pl,
+                                       "affinity": aff, "model": model})
+                    tasks += [(cfg, req, res, dict(
+                        online_kw, arrivals=ArrivalProcess(
+                            grid.arrival, load, grid.arrival_seed),
+                        faults=_fault_model(rate), deadline=grid.deadline,
+                        admit_queue_depth=grid.admit_queue_depth))
+                        for load in loads for rate in frates]
+                    tasks.append((cfg, req, res, dict(
+                        online_kw, arrivals=ArrivalProcess("backtoback"))))
+    workers = _serving_processes(dev, len(tasks))
+    drains = _drain_all(tasks, workers)
+
+    points: List[dict] = []
+    combos: List[dict] = []
+    stepped = sum(onl.stepped_cycles for onl in drains)
+    per_combo = len(loads) * len(frates) + 1
+    for ci, combo_key in enumerate(combo_keys):
+        runs = iter(drains[ci * per_combo:(ci + 1) * per_combo])
+        combo_p50 = []
+        slo_by_load: Dict[float, List] = {}
+        for load in loads:
+            for rate in frates:
+                onl = next(runs)
+                lp = latency_percentiles(onl.latencies)
+                # p50 is non-decreasing in offered load only while every
+                # inference is admitted: shedding caps queueing, so shed
+                # points stay out of the monotonicity verdict.
+                if rate == frates[0] and not onl.num_shed:
+                    combo_p50.append(lp["p50"])
+                point = {
+                    **combo_key, "offered_load": load,
+                    "throughput": onl.throughput,
+                    "p50_latency": lp["p50"],
+                    "p99_latency": lp["p99"],
+                    "mean_latency": lp["mean"],
+                    "completed": lp["count"],
+                    "truncated": lp["truncated"],
+                    "request_drain_cycle": onl.request_drain_cycle,
+                    "result_drain_cycle": onl.result_drain_cycle,
+                }
+                if degradation:
+                    point.update({
+                        "fault_rate": rate,
+                        "deadline": grid.deadline,
+                        "slo_attainment": onl.slo_attainment,
+                        "goodput": onl.goodput,
+                        "shed": onl.num_shed,
+                        "failed": onl.num_failed,
+                    })
+                    slo_by_load.setdefault(load, []).append(
+                        onl.slo_attainment)
+                points.append(point)
+        sat = next(runs)
+        transforms = {}
+        for tr in grid.transforms:
+            row = report.row(**combo_key, transform=tr, precision=prec0,
+                             tiebreak=tb0)
+            transforms[tr] = {
+                "request_bt": row["total_bt"],
+                "request_adjusted_bt": row["adjusted_bt"],
+                "result_bt": row["result_bt"],
+                "result_adjusted_bt": row["result_adjusted_bt"],
+                "adjusted_reduction_pct": row["adjusted_reduction_pct"],
+            }
+        combo = {
+            **combo_key,
+            "saturation_tput": sat.throughput,
+            "latency_monotone": all(
+                b >= a for a, b in zip(combo_p50, combo_p50[1:])
+                if a is not None and b is not None),
+            "transforms": transforms,
+        }
+        if fault_axis and grid.deadline is not None:
+            # SLO attainment non-increasing along the sorted fault-rate
+            # axis at every load (flip schedules are nested in rate).
+            combo["slo_monotone_in_fault"] = all(
+                a >= b for curve in slo_by_load.values()
+                for a, b in zip(curve, curve[1:])
+                if a is not None and b is not None)
+        combos.append(combo)
+    report.stats["serving"] = {
+        "offered_loads": loads,
+        "inferences": grid.serving_inferences,
+        "compute_latency": grid.compute_latency,
+        "arrival": grid.arrival,
+        "arrival_seed": grid.arrival_seed,
+        "precision": prec0, "tiebreak": tb0,
+        "conservation_checked": bool(check_conservation),
+        "fault_rates": frates if fault_axis else [],
+        "fault_protect": grid.fault_protect if degradation else None,
+        "fault_dead_links": [list(d) for d in dead],
+        "deadline": grid.deadline,
+        "admit_queue_depth": grid.admit_queue_depth,
+        "points": points,
+        "combos": combos,
+        "serving_s": round(time.perf_counter() - t0, 4),
+        "stepped_cycles": stepped,
+        "workers": workers,
+    }
+    if out_path:
+        _write_json(out_path, grid, report)
+    return report

@@ -46,7 +46,7 @@ __all__ = ["LayerTraffic", "build_traffic", "build_traffic_batch",
            "pad_traffic_length", "stack_traffics", "conv_layer_traffic",
            "linear_layer_traffic", "build_result_traffic", "layer_results",
            "result_values", "DEFAULT_RESULT_WINDOW", "COMPRESSIONS",
-           "compression_overhead", "filter_packets"]
+           "compression_overhead", "filter_packets", "concat_inferences"]
 
 # One sweep variant: an ordering transform plus an optional value->wire-dtype
 # quantizer (None transmits raw float32 words).
@@ -338,6 +338,56 @@ def pad_traffic_length(traffic: Traffic, t: int) -> Traffic:
         meta=F.pad(traffic.meta, (0, extra)),
         vc=F.pad(traffic.vc, (0, extra)),
         pkt=F.pad(traffic.pkt, (0, extra)))
+
+
+def concat_inferences(traffic: Traffic, n: int) -> Traffic:
+    """Replicate a single-inference Traffic ``n`` times back-to-back.
+
+    Inference k's flits follow inference k-1's within every stream, and
+    packet ids are offset by ``k * num_packets``, so the per-inference
+    ledgers stay disjoint (the closed-loop serving model gates each
+    inference's slice with its own release cycle). The words are copied
+    verbatim, seam transitions between inferences included. Unbatched
+    Traffic with known ``num_packets`` only; the result lies on the
+    traffic's device."""
+    if traffic.length.dim() != 1:
+        raise ValueError("concat_inferences wants an unbatched Traffic "
+                         "(use .variant(i) on a batched one)")
+    npkt = int(traffic.num_packets)
+    if npkt < 0:
+        raise ValueError("concat_inferences needs num_packets metadata "
+                         "(hand-built Traffic must set it)")
+    if n < 1:
+        raise ValueError(f"need n >= 1 inferences, got {n}")
+    if n == 1:
+        return traffic
+    lengths = traffic.length.cpu().numpy().astype(np.int64)
+    m = lengths.shape[0]
+    t2 = int(lengths.max()) * n if m else 0
+    dev = traffic.words.device
+    # (stream, position) -> source position in the single inference, and
+    # the inference index k that offsets the packet id.
+    pos = np.arange(t2)[None, :]
+    ln = np.maximum(lengths, 1)[:, None]
+    live = pos < (lengths * n)[:, None]
+    src = torch.as_tensor(np.where(live, pos % ln, 0), device=dev)
+    k = torch.as_tensor(np.where(live, pos // ln, 0), device=dev,
+                        dtype=torch.int64)
+    live_t = torch.as_tensor(live, device=dev)
+
+    def take(a):
+        return torch.where(live_t, a.gather(1, src), 0).to(torch.int32)
+
+    words = traffic.words.gather(
+        1, src[..., None].expand(-1, -1, traffic.words.shape[-1]))
+    pkt = torch.where(live_t, traffic.pkt.gather(1, src).to(torch.int64)
+                      + k * npkt, 0).to(torch.int32)
+    return Traffic(
+        words=torch.where(live_t[..., None], words, 0).to(torch.int32),
+        dest=take(traffic.dest), meta=take(traffic.meta),
+        vc=take(traffic.vc), pkt=pkt,
+        length=torch.as_tensor((lengths * n).astype(np.int32), device=dev),
+        num_packets=npkt * n)
 
 
 def filter_packets(traffic: Traffic, keep_ids) -> Traffic:

@@ -16,7 +16,8 @@ against live ``repro`` on the same numpy inputs.
   exhausted retry budget, a dead link, a dead router, and a chunk size that
   moves a retry round; lockstep variants in one batch;
 * the gated drain's ``DrainTimeout`` and ``allow_truncation``, the backend
-  rule, ``controller=`` and the dump slot for negative ids (ROADMAP C12).
+  rule, ``controller=`` accepted and the dump slot for negative ids
+  (ROADMAP C12).
 """
 import dataclasses
 
@@ -411,9 +412,20 @@ def test_backend_controller_and_ledger_rules(cells):
     model = faults.FaultModel(rate=1e-2, protect="crc8")
     with pytest.raises(ValueError, match="fault"):
         faults.simulate_faulty(cfg, one, model, backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        faults.drain_with_retries(cfg, one, model, mc_nodes=cfg.mc_nodes,
-                                  controller=object(), device="cpu")
+    # controller= is accepted: an admission controller whose only
+    # arrival is admitted at cycle 0 gives the drain without one.
+    npkt = one.num_packets
+    inc = one.length.numpy().astype(np.int64)[:, None]
+    ctrl = online._AdmissionController(np.zeros(1, np.int64), 1, inc, 64,
+                                       npkt)
+    gated = faults.drain_with_retries(cfg, one, model, mc_nodes=cfg.mc_nodes,
+                                      release=ctrl.release, inc=inc,
+                                      controller=ctrl, chunk=64,
+                                      device="cpu")
+    plain = faults.drain_with_retries(cfg, one, model, mc_nodes=cfg.mc_nodes,
+                                      chunk=64, device="cpu")
+    assert ctrl.done and not ctrl.restart_needed and ctrl.admitted.all()
+    assert_drains_equal(gated, plain)
     with pytest.raises(ValueError, match="unbatched"):
         faults.drain_with_retries(cfg, batch, model, mc_nodes=cfg.mc_nodes,
                                   device="cpu")

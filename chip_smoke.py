@@ -146,19 +146,43 @@ those paths against its plain PyTorch version:
                sheds under faults (4x4_mc2, 8 packets a layer, 6 inferences at
                load 8, admit_queue_depth 2, 5e-3 crc8, chunk 256), every
                OnlineResult field equal on the card and the CPU;
-12. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+12. shard    - sharded drains (``devices=``; a device may repeat): the full
+               DarkNet cell on ["cuda:0", "cuda:0"], its 12 rows equal to
+               the one-device run's and to the record, microseconds a
+               simulated cycle of the two-shard request drain beside the
+               one-device one; the pinned LeNet 4x4_mc2 batch (12 lanes, 8
+               packets a layer) on ["cuda:0", "cpu"] (the router kernel on
+               the card's shard, the plain step on the host's), with and
+               without the conservation ledger, three lanes padded onto two
+               shards, and six lanes of two lengths compacted from 6 to 2
+               rows, each equal to the one-device drain in every field;
+               ``run_sweep(devices="auto")`` drains on as many devices as
+               the host shows;
+13. dist     - the ``dist`` package: ``stream_bt_report`` on the trained
+               LeNet's fc1 block (benchmarks/static_layout.py) equal to
+               BENCH_noc.json suites.static_layout.trained and to the CPU's
+               plain path; ``gradient_wire_report`` of the trained
+               DarkNet's whole parameter tree (102,570 values; gradients by
+               autograd on 8 glyph images, seed 5) at windows 256, 4,096
+               and None equal to the CPU's plain path in every field; the
+               ordered bucket and ``bucketed`` round trips; ms a call of
+               both reports; DarkNet's parameters over a one-rank NCCL
+               ``DeviceMesh`` ("data", "model") by ``spec_shardings`` and
+               gathered back equal;
+14. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
                the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
                the weight stream, each result == the plain version's;
-13. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-6 and 8-12,
+15. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6 and 8-14,
                read after); each CUDA ``descending_perm`` call of phases
                4-5 exactly one launch of the window-order kernel; the
                compression cell launched K1, the chain and its preamble,
                the faults cell and the serving grid K1 and the window
-               order;
-14. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+               order, the sharded drains K1, the dist reports the
+               popcount, the window order and the BT counter;
+16. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
                the plain versions on the CPU, and 4x4_mc2 and 8x8_mc4 x
@@ -167,17 +191,17 @@ those paths against its plain PyTorch version:
                on the CPU for both) likewise, and the same grid at fixed8
                with compression none and msr: equal rows, both phases'
                escape-bit columns included;
-15. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
+17. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
                LeNet drains at 4x4_mc2, 8x8_mc4 and 8x8_mc8: every
                candidate's rows equal (enforced by autotune_drain), the
                timings and winners printed and written beside the report
                (``drain_h100.json``, the card named in it);
-16. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
+18. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
                grid with none/msr and the result phase: its drains run the
                plain step on the card (printed), its rows equal the router
                kernel's; a duplicated packet id refused; one drain's
                timestamp ledgers equal on the card and the CPU;
-17. timing   - each kernel at its path's shapes beside its plain version,
+19. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
@@ -348,6 +372,18 @@ SERVING_FAULTY_CYCLES, SERVING_CLEAN_CYCLES = 61_440, 28_672
 # rate 5e-3 under crc8, chunk 256.
 SERVING_LENET = dict(mesh="4x4_mc2", max_packets=8, inferences=6, load=8.0,
                      admit_queue_depth=2, rate=5e-3, chunk=256)
+# Sharded drains: the full DarkNet cell over two shards of the one card (a
+# device may repeat: lanes never talk to each other); the pinned LeNet
+# 4x4_mc2 batch (8 packets a layer) over the card and the host; six lanes,
+# four of 2 packets a layer, that compact.
+SHARD_MAXP, SHARD_SHORT_MAXP = 8, 2
+SHARD_CHUNK, SHARD_RAGGED_CHUNK = 128, 64
+# dist: the trained DarkNet's gradients on GRAD_BATCH glyph images from
+# seed GRAD_SEED through the gradient wire report at each window; gradient
+# buckets of at most BUCKET_BYTES.
+GRAD_SEED, GRAD_BATCH = 5, 8
+GRAD_WINDOWS = (256, 4096, None)
+BUCKET_BYTES = 64 << 10
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
 # and the non-tensor 32-bit rate, used for 32-bit integer ALU work too.
 HBM_BYTES_PER_S = 3.35e12
@@ -1107,6 +1143,297 @@ def sweep_streams(cfg) -> int:
     from repro_torch.noc.topology import mesh_by_name
     return max(mesh_by_name(n).num_mcs for n in MESHES
                if mesh_by_name(n).num_routers == cfg.num_routers)
+
+
+def same_results(a, b) -> bool:
+    """Two lists of SimResults equal field for field."""
+    return len(a) == len(b) and all(same_fault_field(x, y)
+                                    for x, y in zip(a, b))
+
+
+def run_shard_phase(dlayers, layers, unsharded, card: str,
+                    device: str = "cuda") -> dict:
+    """The sharded drains (ROADMAP A15) on ``device``: the full DarkNet
+    cell over two shards of one device (rows equal to ``unsharded``, the
+    cell's one-device run, and to the record), the pinned LeNet 4x4_mc2
+    batch over the device and the host with and without the conservation
+    ledger, three lanes padded onto two shards and six lanes of two lengths
+    compacted to two rows, each equal to the one-device drain, and
+    ``run_sweep(devices="auto")``. Returns the phase's report, with the
+    kernel launches of the sharded calls."""
+    import torch
+    from repro_torch.core.wire import by_name
+    from repro_torch.kernels import ops
+    from repro_torch.noc import SweepGrid, run_sweep, sim
+    from repro_torch.noc.sweep import _concat_lanes, _take_lanes
+    from repro_torch.noc.topology import mesh_by_name
+    from repro_torch.noc.traffic import build_traffic_batch, pad_traffic_length
+    from repro_torch.quant import quantize_fixed8
+
+    d0 = "cuda:0" if device == "cuda" else device
+    two, mixed = [d0, d0], [d0, "cpu"]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cfg = mesh_by_name("4x4_mc2")
+    variants = [(by_name(tr, tiebreak=tb), None if prec == "float32" else
+                 (lambda t: quantize_fixed8(t).values))
+                for prec in ("float32", "fixed8")
+                for tb in ("stable", "pattern") for tr in ("O0", "O1", "O2")]
+    batch = build_traffic_batch(layers, cfg, variants,
+                                max_packets_per_layer=SHARD_MAXP,
+                                device=device)
+    three = batch._replace(**{f: getattr(batch, f)[:3]
+                              for f in sim.Traffic._fields[:6]})
+    # Six lanes of two lengths, one long lane a shard: the four short ones
+    # retire first and the two survivors compact to two rows.
+    long_ = build_traffic_batch(layers, cfg, variants[:2],
+                                max_packets_per_layer=SHARD_MAXP,
+                                device=device)
+    short = build_traffic_batch(layers, cfg, variants[:4],
+                                max_packets_per_layer=SHARD_SHORT_MAXP,
+                                device=device)
+    t_len = int(long_.words.shape[-2])
+    ragged = _take_lanes(_concat_lanes([pad_traffic_length(long_, t_len),
+                                        pad_traffic_length(short, t_len)]),
+                         np.array([0, 2, 3, 1, 4, 5]))
+
+    ops.reset_launch_counts()
+    rep2, wall2 = timed(lambda: run_sweep(SweepGrid(**DARKNET_FULL,
+                                                    device=device),
+                                          lambda _name: dlayers,
+                                          devices=two))
+    mixed_runs = {checked: timed(lambda checked=checked: sim.simulate_batch(
+        cfg, batch, chunk=SHARD_CHUNK, check_conservation=checked,
+        devices=mixed)) for checked in (False, True)}
+    padded, _ = timed(lambda: sim.simulate_batch(cfg, three,
+                                                 chunk=SHARD_CHUNK,
+                                                 devices=two))
+    widths = []
+    regroup = sim._regroup
+
+    def spy(shards, rows, devs):
+        widths.append(len(list(rows)))
+        return regroup(shards, rows, devs)
+
+    sim._regroup = spy
+    try:
+        compacted, _ = timed(lambda: sim.simulate_batch(
+            cfg, ragged, chunk=SHARD_RAGGED_CHUNK, devices=two))
+    finally:
+        sim._regroup = regroup
+    launches = {k.name: k.launches for k in ops.KERNELS}
+
+    check_sweep(rep2, "two-shard DarkNet cell", 12)
+    if rep2.stats["devices"] != 2:
+        fail(f"two-shard DarkNet cell: stats['devices'] "
+             f"{rep2.stats['devices']}, expected 2")
+    if rep2.rows != unsharded.rows:
+        fail("two-shard DarkNet cell rows differ from the one-device run's")
+    for r in rep2.rows:
+        got = (r["cycles"], r["flits"], r["result_cycles"],
+               r["result_flits"])
+        want = DARKNET_FULL_RECORD[(r["placement"], r["affinity"])]
+        if got != want:
+            fail(f"two-shard DarkNet {r['placement']}/{r['affinity']} "
+                 f"{r['transform']}: {got}, the reference recorded {want}")
+    drain = max(r["cycles"] for r in rep2.rows)
+    us2 = rep2.stats["simulate_s"] * 1e6 / drain
+    us1 = unsharded.stats["simulate_s"] * 1e6 / drain
+    print(f"  [{card}] full DarkNet cell over {two}: 12 rows == the "
+          f"one-device run's and the record's cycles, flits, result_cycles "
+          f"and result_flits; request drain {us2:.3f} us a simulated cycle "
+          f"(one device: {us1:.3f}), simulate {rep2.stats['simulate_s']} s, "
+          f"result simulate {rep2.stats['result_simulate_s']} s, sweep wall "
+          f"{wall2:.3f} s", flush=True)
+
+    one = {checked: timed(lambda checked=checked: sim.simulate_batch(
+        cfg, batch, chunk=SHARD_CHUNK, check_conservation=checked,
+        device=device)) for checked in (False, True)}
+    for checked in (False, True):
+        if not same_results(mixed_runs[checked][0], one[checked][0]):
+            fail(f"the {mixed} drain (check_conservation={checked}) != the "
+                 "one-device drain")
+    if not same_results(padded, sim.simulate_batch(cfg, three,
+                                                   chunk=SHARD_CHUNK,
+                                                   device=device)):
+        fail(f"three lanes on {two} (padded to four) != the one-device "
+             "drain")
+    if widths != [6, 2]:
+        fail(f"the ragged drain on {two} placed and compacted {widths} "
+             "rows, expected [6, 2]")
+    if not same_results(compacted, sim.simulate_batch(
+            cfg, ragged, chunk=SHARD_RAGGED_CHUNK, device=device)):
+        fail(f"the compacted drain on {two} != the one-device drain")
+    print(f"  pinned LeNet 4x4_mc2 batch (12 lanes, {SHARD_MAXP} packets a "
+          f"layer) over {mixed}: == the one-device drain, "
+          f"{mixed_runs[False][1]:.3f} s (one device "
+          f"{one[False][1]:.3f} s), with the ledger "
+          f"{mixed_runs[True][1]:.3f} s (one device {one[True][1]:.3f} s); "
+          f"3 lanes padded onto 2 shards ==; 6 ragged lanes compacted "
+          f"6 -> 2 rows ==", flush=True)
+
+    auto = run_sweep(SweepGrid(meshes=("4x4_mc2",), transforms=("O0", "O1"),
+                               tiebreaks=("pattern",), precisions=("fixed8",),
+                               models=("lenet",),
+                               max_packets_per_layer=SHARD_MAXP,
+                               chunk=SHARD_CHUNK, device=device),
+                     lambda _name: layers)
+    count = torch.cuda.device_count() if device == "cuda" else 1
+    if auto.stats["devices"] != count:
+        fail(f"run_sweep(devices='auto') drained on {auto.stats['devices']} "
+             f"devices, the host shows {count}")
+    print(f"  run_sweep(devices='auto'): {auto.stats['devices']} device(s), "
+          f"as many as the host shows; launches of the sharded calls "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return {"darknet_rows": rep2.rows, "darknet_stats": rep2.stats,
+            "darknet_wall_s": wall2, "us_per_cycle": us2,
+            "us_per_cycle_one_device": us1,
+            "mixed_s": {str(k): v[1] for k, v in mixed_runs.items()},
+            "one_device_s": {str(k): v[1] for k, v in one.items()},
+            "compaction_rows": widths, "auto_devices": auto.stats["devices"],
+            "launches": launches}
+
+
+def run_dist_phase(lparams, dnet, card: str, device: str = "cuda") -> dict:
+    """The ``dist`` package (ROADMAP A16) on ``device``: the static layout
+    of the trained LeNet's fc1 block held to BENCH_noc.json's
+    ``suites.static_layout.trained``, the gradient wire report of the
+    trained DarkNet's whole parameter tree (gradients by autograd on a
+    seeded glyph batch) at each window, both equal to the CPU's plain path
+    on the same tensors, the ordered bucket and bucketing round trips, and
+    DarkNet's parameters distributed over a one-rank DTensor mesh and
+    gathered back. Returns the phase's report, with the kernel launches of
+    the two reports."""
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import tree
+    from repro_torch.data import glyph_batch
+    from repro_torch.dist import (DEFAULT_RULES, bucketed,
+                                  gradient_wire_report,
+                                  order_gradient_bucket, reorder_lm_params,
+                                  restore_gradient_bucket, spec_shardings,
+                                  stream_bt_report, unbucket)
+    from repro_torch.kernels import ops
+
+    with open(os.path.join(REPO, "BENCH_noc.json")) as f:
+        record = json.load(f)["suites"]["static_layout"]["trained"]
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def host_ms(fn, reps: int = 5) -> float:
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def on_cpu(t):
+        return tree.map_leaves(lambda x: x.cpu(), t)
+
+    blocks = {"fc1": {"wu": lparams["f1w"], "wd": lparams["f2w"]}}
+    gen = torch.Generator(device=device).manual_seed(GRAD_SEED)
+    x, y = glyph_batch(gen, GRAD_BATCH, hw=64, channels=3, device=device)
+    params = {n: p.detach() for n, p in dnet.named_parameters()}
+    grads = dnet.grads(x, y)
+    nvals = sum(t.numel() for t in tree.leaves(params))
+
+    ops.reset_launch_counts()
+    static = stream_bt_report(blocks, reorder_lm_params(blocks))
+    reports = {w: gradient_wire_report(grads, params, window=w)
+               for w in GRAD_WINDOWS}
+    sync()
+    launches = {k.name: k.launches for k in ops.KERNELS}
+
+    got = {k: float(v) for k, v in static.items()}
+    if got != record:
+        fail(f"static layout of the trained LeNet's fc1 block {got} != "
+             f"BENCH_noc.json suites.static_layout.trained {record}")
+    cblocks = on_cpu(blocks)
+    plain = stream_bt_report(cblocks, reorder_lm_params(cblocks))
+    if {k: float(v) for k, v in plain.items()} != got:
+        fail("static layout on the card != the CPU's plain path")
+    print(f"  [{card}] static layout, trained LeNet fc1 (f1w 400x120 with "
+          f"f2w 120x84): BT/flit {got['bt_per_flit_before']!r} -> "
+          f"{got['bt_per_flit_after']!r}, reduction {got['reduction']!r} "
+          "== BENCH_noc.json and == the CPU's plain path", flush=True)
+
+    cgrads, cparams = on_cpu(grads), on_cpu(params)
+    rows = {}
+    for w, rep in reports.items():
+        want = gradient_wire_report(cgrads, cparams, window=w)
+        row = {k: (v if isinstance(v, int) else v.item())
+               for k, v in rep.items()}
+        if row != {k: (v if isinstance(v, int) else v.item())
+                   for k, v in want.items()}:
+            fail(f"gradient wire report at window {w}: card {row} != the "
+                 f"CPU's plain path")
+        rows[str(w)] = row
+        print(f"  gradient wire, trained DarkNet ({nvals} values, "
+              f"{GRAD_BATCH} glyph images), window {w}: BT "
+              f"{row['bt_baseline']} / O1 {row['bt_o1']} / O2 "
+              f"{row['bt_o2']}, reduction O1 {row['reduction_o1']:.6f} O2 "
+              f"{row['reduction_o2']:.6f}, {row['o2_index_bits']} index "
+              "bits; == the CPU's plain path", flush=True)
+
+    flat_g = torch.cat([t.reshape(-1) for t in tree.leaves(grads)])
+    flat_w = torch.cat([t.reshape(-1) for t in tree.leaves(params)])
+    for w in (256, None):
+        bucket = order_gradient_bucket(flat_g, flat_w, window=w)
+        if not same_bits(restore_gradient_bucket(bucket, flat_g.numel()),
+                         flat_g):
+            fail(f"ordered gradient bucket (window {w}) did not round-trip")
+    buckets = bucketed(grads, BUCKET_BYTES)
+    back = unbucket(buckets, grads)
+    if not all(same_bits(a, b) for a, b in zip(tree.leaves(back),
+                                               tree.leaves(grads))):
+        fail("bucketed / unbucket did not round-trip")
+
+    static_ms = host_ms(lambda: stream_bt_report(blocks,
+                                                 reorder_lm_params(blocks)))
+    grad_ms = {str(w): host_ms(lambda w=w: gradient_wire_report(
+        grads, params, window=w)) for w in GRAD_WINDOWS}
+    print(f"  ordered bucket (windows 256, None) and {len(buckets)} buckets "
+          f"of <= {BUCKET_BYTES} bytes round-trip bit for bit; a call on "
+          f"the card: static layout report {static_ms:.3f} ms, gradient "
+          f"wire report {grad_ms} ms; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
+    # DarkNet's parameters over a one-rank DTensor mesh ("data", "model"):
+    # a HashStore needs no network.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    tdist.init_process_group("nccl" if device == "cuda" else "gloo",
+                             store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh(device, torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        placed = spec_shardings(type(dnet).specs(), DEFAULT_RULES, mesh)
+        for name, p in params.items():
+            if not torch.equal(distribute_tensor(p, mesh, placed[name])
+                               .full_tensor(), p):
+                fail(f"DTensor round trip of {name} under {placed[name]} "
+                     "changed it")
+    finally:
+        tdist.destroy_process_group()
+    print(f"  DTensor mesh ('data', 'model') of one rank: "
+          f"{len(params)} parameters distributed and gathered back equal",
+          flush=True)
+    return {"static_layout": got, "gradient_wire": rows,
+            "values": nvals, "static_ms": static_ms, "gradient_ms": grad_ms,
+            "buckets": len(buckets),
+            "placements": {k: [str(p) for p in v] for k, v in placed.items()},
+            "launches": launches}
 
 
 def main() -> None:
@@ -2122,6 +2449,17 @@ def main() -> None:
         serving_launches = {k.name: k.launches for k in ops.KERNELS}
         report["serving"]["launches"] = serving_launches
 
+    with Phase("shard (DarkNet cell on two shards of the card, LeNet on "
+               "the card and the host)"):
+        # The sharded calls' launches are counted inside (the one-device
+        # drains they are held to come after the count).
+        report["shard"] = run_shard_phase(dlayers, layers, repd, card)
+        shard_launches = report["shard"]["launches"]
+
+    with Phase("dist (static layout, gradient wire, buckets, DTensor)"):
+        report["dist"] = run_dist_phase(lparams, dnet, card)
+        dist_launches = report["dist"]["launches"]
+
     ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
@@ -2178,6 +2516,7 @@ def main() -> None:
                  "compression": comp_launches,
                  "faults": faults_launches,
                  "serving": serving_launches,
+                 "shard": shard_launches, "dist": dist_launches,
                  "ordering_unit": unit_launches}
         launches = {k.name: sum(p[k.name] for p in paths.values())
                     for k in ops.KERNELS}
@@ -2213,6 +2552,11 @@ def main() -> None:
             for k in ("router_step", "descending_perm"):
                 if launched[k] <= 0:
                     fail(f"the {name} path did not launch {k}")
+        if shard_launches["router_step"] <= 0:
+            fail("the sharded drains did not launch router_step")
+        for k in ("popcount", "descending_perm", "bt_count"):
+            if dist_launches[k] <= 0:
+                fail(f"the dist reports did not launch {k}")
         for k in ("chain_greedy", "chain_inputs"):
             if comp_launches[k] <= 0:
                 fail(f"the compression cell's O3 did not launch {k}")

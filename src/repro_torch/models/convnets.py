@@ -111,7 +111,31 @@ def _set_params(module: nn.Module, params: Dict[str, torch.Tensor],
         setattr(module, name, nn.Parameter(t.clone(), requires_grad=False))
 
 
-class LeNet(nn.Module):
+def _xent(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean over the batch of ``-log_softmax(logits)[y]``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(1, y.long()[:, None]).mean()
+
+
+class _Classifier(nn.Module):
+    """What LeNet and DarkNet share: the reference's loss, and its
+    gradients by autograd."""
+
+    def loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The reference's ``loss``: the batch mean of
+        ``-log_softmax(logits)[y]``."""
+        return _xent(self(x), y)
+
+    def grads(self, x: torch.Tensor,
+              y: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The loss's gradient with respect to every parameter, by name
+        (``torch.func.grad`` over the module's own parameters)."""
+        params = {n: p.detach() for n, p in self.named_parameters()}
+        return torch.func.grad(lambda p: _xent(
+            torch.func.functional_call(self, p, (x,)), y))(params)
+
+
+class LeNet(_Classifier):
     """Classic LeNet-5: 32x32x1 -> conv6@5 -> pool -> conv16@5 -> pool
     -> fc120 -> fc84 -> fc10 (tanh), ~61.7k parameters.
 
@@ -188,7 +212,7 @@ class LeNet(nn.Module):
         return torch.cat(parts).detach()
 
 
-class DarkNetLike(nn.Module):
+class DarkNetLike(_Classifier):
     """DarkNet-reference-style CNN on 64x64x3 (the paper's Sec. V-B input,
     reduced 'to speed up the simulation'): 3x3 VALID convs doubling the
     channels (16, 32, 64, 128), each followed by leaky-ReLU 0.1 and a 2x2

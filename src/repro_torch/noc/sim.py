@@ -27,17 +27,21 @@ Two implementations of a router cycle, selected by ``backend=``:
   step on the same device.
 
 State is always batched: every leaf carries a leading variants axis B;
-``simulate`` drains one Traffic as a batch of one. ``devices=`` belongs to
-a later slice of the port.
+``simulate`` drains one Traffic as a batch of one. ``simulate_batch(devices=)``
+deals the lanes over several devices (a device may repeat), one contiguous
+block a device, each block's state on its own device.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+from contextlib import nullcontext
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import tree
 from .._device import DeviceLike, resolve_device
 from ..core.bits import popcount32
 from ..core.wire import PROTECTION_BITS, protection_syndrome_masks
@@ -66,8 +70,6 @@ MAX_ROUTERS = 1 << SIDE_DEST_BITS
 MAX_VCS = 1 << (16 - SIDE_VC_SHIFT)
 
 BACKENDS = ("auto", "plain", "cuda")
-
-_LATER = "a later slice of the port (ROADMAP queue A)"
 
 
 class Traffic(NamedTuple):
@@ -839,12 +841,6 @@ def _npkt(traffic: Traffic) -> int:
     return int(traffic.pkt.max()) + 1 if traffic.pkt.numel() else 0
 
 
-def _unsupported(devices) -> None:
-    if devices is not None:
-        raise NotImplementedError(
-            f"devices= (sharded drains) arrives with {_LATER}, item 15")
-
-
 class _Snapshot:
     """Host copy of a small device tensor taken now, read later.
 
@@ -885,11 +881,93 @@ def _checked_mc(cfg: NocConfig, mc_nodes, shape) -> np.ndarray:
     return mc
 
 
+def _lane_devices(devices, device: DeviceLike = None) -> List[torch.device]:
+    """The devices a batched drain deals its lanes to, in shard order.
+
+    ``devices=None``: ``[device]`` (CUDA unless the caller passes
+    ``device="cpu"``). Otherwise a sequence of devices or device names, in
+    which a device may repeat, or a 1-D mesh with a ``devices`` array and
+    ``axis_names`` (``dist.sharding.LocalMesh``); ``device`` must then be
+    None.
+    """
+    if devices is None:
+        return [resolve_device(device)]
+    if device is not None:
+        raise ValueError("pass device= or devices=, not both")
+    if hasattr(devices, "axis_names"):
+        if len(devices.axis_names) != 1:
+            raise ValueError("simulate_batch wants a 1-D device mesh, got "
+                             f"axes {tuple(devices.axis_names)}")
+        devices = list(np.asarray(devices.devices).flat)
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices= names no device")
+    return devs
+
+
+class _Shard(NamedTuple):
+    """One device's contiguous block of a drain's lanes."""
+
+    state: SimState
+    ledger: Optional[Ledger]
+    wire: Wire
+    mc: torch.Tensor
+
+
+def _blocks(rows: int, ndev: int) -> List[range]:
+    """The rows of a ``rows``-lane batch (a multiple of ``ndev``) that each
+    device holds: contiguous blocks in device order, the reference's
+    ``P(axis)`` over the leading dim. Placement and compaction both deal
+    lanes by this rule."""
+    k = rows // ndev
+    return [range(i * k, (i + 1) * k) for i in range(ndev)]
+
+
+def _regroup(shards: List[_Shard], rows, devs) -> List[_Shard]:
+    """Rows ``rows`` (indices into the batch that ``shards`` hold as equal
+    contiguous blocks; a row may repeat) dealt over ``devs`` by
+    :func:`_blocks`. A block that is one whole source shard, in order, is
+    moved; every other block is gathered, so no two shards share memory
+    (a compaction always narrows the blocks, so only a one-device
+    placement moves a whole shard)."""
+    rows = list(rows)
+    k = int(shards[0].state.ejected.shape[0])
+    src = [tree.leaves(sh) for sh in shards]
+    out = []
+    for dev, blk in zip(devs, _blocks(len(rows), len(devs))):
+        runs = [(s, [r - s * k for r in grp]) for s, grp in itertools.groupby(
+            (rows[i] for i in blk), key=lambda r: r // k)]
+        leaves = []
+        for j in range(len(src[0])):
+            pieces = []
+            for s, loc in runs:
+                x = src[s][j]
+                if loc != list(range(k)):
+                    x = x.index_select(0, torch.as_tensor(loc,
+                                                          device=x.device))
+                pieces.append(x.to(dev))
+            leaves.append(pieces[0] if len(pieces) == 1 else torch.cat(pieces))
+        out.append(tree.unflatten(shards[0], leaves))
+    return out
+
+
+def _on(dev: torch.device):
+    """Where a shard launches: under its CUDA device (a kernel launches on
+    the current device's current stream); nothing to enter on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+
+
+def _rows_np(parts) -> np.ndarray:
+    """One leaf's shard parts, read to the host in batch-row order."""
+    return np.concatenate([t.cpu().numpy() for t in parts])
+
+
 def simulate_batch(cfg: NocConfig, traffic: Traffic, *,
                    count_headers: bool = True, max_cycles: int = 2_000_000,
                    chunk: int = 4096, check_conservation: bool = False,
                    timestamps: bool = False, devices=None, mc_nodes=None,
-                   backend: str = "auto", compact_ratio: float = 0.5,
+                   retire: bool = True, backend: str = "auto",
+                   compact_ratio: float = 0.5,
                    device: DeviceLike = None) -> List[SimResult]:
     """Drain B traffic variants (leading axis) together.
 
@@ -898,28 +976,43 @@ def simulate_batch(cfg: NocConfig, traffic: Traffic, *,
     are read), lanes retire at their exact ``drain_cycle`` and the live
     lanes are compacted into a narrower power-of-two batch once
     ``live <= compact_ratio * rows`` (0.5, the reference's default, halves;
-    0.0 never compacts; ``noc.tune`` measures the alternatives). The
+    0.0 never compacts; ``noc.tune`` measures the alternatives).
+    ``retire=False``: no lane retires, every lane steps until the slowest
+    one drains (``cycles`` then reads the last chunk's for every lane). The
     traffic is moved to ``device`` (CUDA unless the caller passes
     ``device="cpu"``). ``backend``: ``"auto"`` (the Hopper kernel on CUDA,
     the plain step on the CPU), ``"plain"`` or ``"cuda"``.
+
+    ``devices``: deal the lanes over several devices - a sequence of
+    devices or device names, in which a device may repeat (lanes never talk
+    to each other, so two shards on one device are still two shards), or a
+    1-D ``dist.sharding.LocalMesh`` - instead of ``device``. The batch is
+    padded with empty lanes to a multiple of the shard count and split into
+    contiguous blocks, each shard's state, wire and ``mc`` rows on its own
+    device; every chunk launches each shard, CUDA shards first (the kernel
+    under that device, on its current stream; a CPU shard runs the plain
+    step), and then reads the ejected counts back. Compaction keeps a
+    multiple of the shard count and re-deals the survivors by the same
+    blocks. Results, ledgers and timeouts are the single-device drain's,
+    bit for bit. ``None`` or one device is the plain driver on that device.
 
     ``check_conservation``: track tail ejections per packet id and raise
     ``RuntimeError`` unless every injected id ejects exactly once.
     ``timestamps``: each result carries its packets' ``inj_time`` and
     ``eject_time``. Either arms the packet ledger, which only the plain
-    step carries: ``auto`` then runs the plain step on ``device``, and
-    ``cuda`` raises. Results are the same with and without the ledger.
+    step carries: ``auto`` then runs the plain step on every shard's
+    device, and ``cuda`` raises. Results are the same with and without the
+    ledger.
     """
     if not 0.0 <= compact_ratio <= 1.0:
         raise ValueError(f"compact_ratio must be in [0, 1], "
                          f"got {compact_ratio!r}")
-    dev = resolve_device(device)
-    _unsupported(devices)
+    devs = _lane_devices(devices, device)
     if traffic.length.dim() != 2:
         raise ValueError("simulate_batch wants a leading variants axis; "
                          "use simulate() for a single Traffic")
     want_ledger = check_conservation or timestamps
-    bk = _resolve_backend(backend, dev, want_ledger)
+    bks = [_resolve_backend(backend, d, want_ledger) for d in devs]
     b, m = traffic.length.shape
     if mc_nodes is None:
         mc = np.broadcast_to(_mc_array(cfg, traffic, m, batched=True),
@@ -931,78 +1024,106 @@ def simulate_batch(cfg: NocConfig, traffic: Traffic, *,
     track = npkt > 0
     lengths_host = traffic.length.cpu().numpy()
     totals = lengths_host.sum(axis=1).astype(np.int64)
-    wire = fuse_traffic(Traffic(*(t.to(dev) for t in traffic[:6]),
+    ndev, dev0 = len(devs), devs[0]
+    wire = fuse_traffic(Traffic(*(t.to(dev0) for t in traffic[:6]),
                                 num_packets=traffic.num_packets), track)
-    mc_dev = torch.as_tensor(mc, dtype=torch.int32, device=dev)
-    state = make_state(cfg, m, batch=b, device=dev, track=track)
-    ledger = make_ledger(npkt, b, timestamps, dev) if track else None
+    # Empty lanes (zero length, zero mc rows, zero totals) pad the batch to
+    # a multiple of the shard count; they drain at once.
+    bp = -(-b // ndev) * ndev
+    if bp != b:
+        wire = Wire(*(torch.cat([x, x.new_zeros((bp - b,) + x.shape[1:])])
+                      for x in wire))
+        mc = np.concatenate([mc, np.zeros((bp - b, m), np.int32)])
+        totals = np.concatenate([totals, np.zeros(bp - b, np.int64)])
+    shards = _regroup([_Shard(
+        make_state(cfg, m, batch=bp, device=dev0, track=track),
+        make_ledger(npkt, bp, timestamps, dev0) if track else None, wire,
+        torch.as_tensor(mc, dtype=torch.int32, device=dev0))], range(bp), devs)
+    del wire
     key = _mesh_key(cfg)
+    # CUDA shards launch first: the card works while a CPU shard steps.
+    order = sorted(range(ndev), key=lambda i: devs[i].type != "cuda")
 
-    def run(st, lg, w, mcn):
-        return _run_chunk(st, lg, w, mcn, key, count_headers, chunk, bk)
+    def snap(shs):
+        out = [None] * ndev
+        for i in order:
+            with _on(devs[i]):
+                out[i] = _Snapshot(shs[i].state.ejected)
+        return out
+
+    def run(shs):
+        out = list(shs)
+        for i in order:
+            sh = shs[i]
+            with _on(devs[i]):
+                st, lg = _run_chunk(sh.state, sh.ledger, sh.wire, sh.mc, key,
+                                    count_headers, chunk, bks[i])
+            out[i] = sh._replace(state=st, ledger=lg)
+        return out, snap(out)
+
+    def read_ejected(snaps) -> np.ndarray:
+        return np.concatenate([s.numpy() for s in snaps])
 
     harvested = {}      # lane id -> host bookkeeping leaves
     ledgers = {}        # lane id -> host ledger rows
 
-    def harvest(st, lg, pairs):
-        leaves = [st.link_bt.cpu().numpy(), st.link_flits.cpu().numpy(),
-                  st.inj_bt.cpu().numpy(), st.ejected.cpu().numpy(),
-                  st.cycle.cpu().numpy(), st.drained_at.cpu().numpy()]
-        books = ([None if x is None else x.cpu().numpy() for x in lg]
-                 if lg is not None else None)
+    def harvest(shs, pairs):
+        leaves = [_rows_np(getattr(sh.state, f) for sh in shs)
+                  for f in ("link_bt", "link_flits", "inj_bt", "ejected",
+                            "cycle", "drained_at")]
+        books = None
+        if shs[0].ledger is not None:
+            books = [None if x is None
+                     else _rows_np(sh.ledger[j] for sh in shs)
+                     for j, x in enumerate(shs[0].ledger)]
         for lane, row in pairs:
             harvested[lane] = tuple(a[row] for a in leaves)
             if books is not None:
                 ledgers[lane] = [None if x is None else x[row] for x in books]
 
     if totals.sum() == 0:   # empty traffic: nothing to drain
-        harvest(state, ledger, [(lane, lane) for lane in range(b)])
+        harvest(shards, [(lane, lane) for lane in range(bp)])
     else:
-        live = list(range(b))                   # lanes still draining
+        live = list(range(bp))                  # lanes still draining
         prim = {lane: lane for lane in live}    # lane -> batch row
-        state, ledger = run(state, ledger, wire, mc_dev)
-        ej = _Snapshot(state.ejected)
+        shards, ej = run(shards)
         nch = 1
         while True:
-            state2, ledger2 = run(state, ledger, wire, mc_dev)
+            shards2, ej2 = run(shards)
             nch += 1
-            e = ej.numpy()                      # ejected after chunk nch-1
-            ej2 = _Snapshot(state2.ejected)
+            e = read_ejected(ej)                # ejected after chunk nch-1
             done = [lane for lane in live if e[prim[lane]] >= totals[lane]]
             if len(done) == len(live):
-                harvest(state2, ledger2, [(lane, prim[lane]) for lane in live])
+                harvest(shards2, [(lane, prim[lane]) for lane in live])
                 break
             if (nch - 1) * chunk >= max_cycles:
                 lag = sorted(set(live) - set(done))
                 row = prim[lag[0]]
-                e2 = ej2.numpy()
+                k = int(shards2[0].state.ejected.shape[0])
+                st = shards2[row // k].state
+                e2 = read_ejected(ej2)
                 raise _drain_timeout(
                     f"NoC variants {lag} "
                     f"({[int(e2[prim[x]]) for x in lag]}/"
                     f"{[int(totals[x]) for x in lag]} flits; "
                     f"diagnostic for variant {lag[0]})",
                     nch * chunk, int(e2[row]), int(totals[lag[0]]),
-                    state2.count[row].cpu().numpy(),
-                    state2.inj_ptr[row].cpu().numpy(), lengths_host[lag[0]])
-            if done:
-                harvest(state2, ledger2, [(lane, prim[lane]) for lane in done])
+                    st.count[row % k].cpu().numpy(),
+                    st.inj_ptr[row % k].cpu().numpy(), lengths_host[lag[0]])
+            if retire and done:
+                harvest(shards2, [(lane, prim[lane]) for lane in done])
                 gone = set(done)
                 live = [lane for lane in live if lane not in gone]
-                cur = int(state2.ejected.shape[0])
-                target = _next_pow2(len(live))
+                cur = len(e)
+                target = -(-_next_pow2(len(live)) // ndev) * ndev
                 if len(live) <= int(cur * compact_ratio) and target < cur:
                     keep = [prim[lane] for lane in live]
-                    rows = keep + [keep[0]] * (target - len(keep))
-                    idx = torch.as_tensor(rows, dtype=torch.long, device=dev)
-                    state2 = state2.take(idx)
-                    if ledger2 is not None:
-                        ledger2 = ledger2.take(idx)
-                    wire = Wire(wire.wire.index_select(0, idx),
-                                wire.length.index_select(0, idx))
-                    mc_dev = mc_dev.index_select(0, idx)
-                    ej2 = _Snapshot(state2.ejected)
+                    shards2 = _regroup(
+                        shards2, keep + [keep[0]] * (target - len(keep)),
+                        devs)
+                    ej2 = snap(shards2)
                     prim = {lane: i for i, lane in enumerate(live)}
-            state, ledger, ej = state2, ledger2, ej2
+            shards, ej = shards2, ej2
 
     if check_conservation and track:
         length = lengths_host

@@ -42,7 +42,8 @@ from ..core.wire import (COMPRESSIONS, PROTECTION_BITS, WireTransform,
 from ..quant import quantize_fixed8
 from .online import (ARRIVAL_KINDS, ArrivalProcess, latency_percentiles,
                      simulate_online)
-from .sim import BACKENDS, SimResult, Traffic, _resolve_backend, simulate_batch
+from .sim import (BACKENDS, SimResult, Traffic, _lane_devices,
+                  _resolve_backend, simulate_batch)
 from .topology import (AFFINITIES, PLACEMENTS, NocConfig, affinity_mc_table,
                        mc_placement, mesh_by_name, packet_mean_hops,
                        xy_link_loads)
@@ -65,9 +66,6 @@ _QUANTIZERS = {
     "float32": None,
     "fixed8": lambda t: quantize_fixed8(t).values,
 }
-
-_LATER = "a later slice of the port (ROADMAP queue A, item {})"
-
 
 @dataclasses.dataclass(frozen=True)
 class SweepGrid:
@@ -323,9 +321,53 @@ def drain_estimate(cfg: NocConfig, lengths: np.ndarray) -> float:
     return max(inj, link)
 
 
+def _deal_order(ests: np.ndarray, ndev: int) -> np.ndarray:
+    """Lane permutation dealing estimate-sorted lanes round-robin across
+    ``ndev`` contiguous device shards; identity when there is nothing to
+    balance (one device or uniform estimates)."""
+    if ndev <= 1 or np.unique(ests).size <= 1:
+        return np.arange(ests.size)
+    order = np.argsort(-ests, kind="stable")
+    return np.concatenate([order[i::ndev] for i in range(ndev)])
+
+
+def _take_lanes(traffic: Traffic, idx: np.ndarray) -> Traffic:
+    """The lanes ``idx`` of a batched Traffic, in that order."""
+    if np.array_equal(idx, np.arange(idx.size)):
+        return traffic
+    j = torch.as_tensor(idx, device=traffic.length.device)
+    return traffic._replace(**{f: getattr(traffic, f).index_select(0, j)
+                               for f in Traffic._fields[:6]})
+
+
+def _dealt(order: np.ndarray, cfg: NocConfig, traffic: Traffic,
+           mc_rows: np.ndarray, **kw) -> List[SimResult]:
+    """``simulate_batch`` of the lanes taken in ``order`` (dealt over the
+    device shards), its results put back in lane order."""
+    res = simulate_batch(cfg, _take_lanes(traffic, order),
+                         mc_nodes=mc_rows[order], **kw)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.size)
+    return [res[i] for i in inv]
+
+
+def _resolve_devices(devices, dev: torch.device):
+    """``"auto"`` -> every visible CUDA device when the grid's device is
+    CUDA and there are two or more, else None; a device sequence or a 1-D
+    mesh -> its devices, in shard order."""
+    if isinstance(devices, str):
+        if devices != "auto":
+            raise ValueError(f"devices must be 'auto', None, or a device "
+                             f"sequence, got {devices!r}")
+        n = torch.cuda.device_count() if dev.type == "cuda" else 0
+        return [torch.device("cuda", i) for i in range(n)] if n > 1 else None
+    return None if devices is None else _lane_devices(devices)
+
+
 def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
               out_path: Optional[str] = None,
-              check_conservation: bool = False, devices=None) -> SweepReport:
+              check_conservation: bool = False,
+              devices="auto") -> SweepReport:
     """Execute every cell of ``grid``: one packetization per (mesh,
     placement, affinity, model, compression) combo and ONE batched request
     drain per (mesh, model, compression) over every combo's lanes; with
@@ -345,11 +387,19 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
     each stage's device idle share; with no profiler the spans cost
     nothing measurable.
 
+    ``devices``: the devices both batched drains deal their lanes over
+    (``sim.simulate_batch(devices=)``; a device may repeat): ``"auto"``,
+    the default, takes every visible CUDA device when ``grid.device`` is
+    CUDA and there are two or more, else drains on ``grid.device`` alone,
+    as ``None`` does. Lanes are dealt by their drain estimate, so no shard
+    holds only the congested lanes; ``stats["devices"]`` counts the shards
+    and the rows are the single-device drain's.
+
     ``out_path`` writes ``{"grid", "rows", "stats"}`` as JSON: the
     reference's keys and values, and ``grid["device"]`` beside them."""
-    if devices is not None:
-        raise NotImplementedError("devices= arrives with " + _LATER.format(15))
     dev = resolve_device(grid.device)
+    devs = _resolve_devices(devices, dev)
+    ndev = len(devs) if devs else 1
     step = _resolve_backend(grid.backend, dev, check_conservation)
     axes = grid.variant_axes()
     variants = [(by_name(tr, tiebreak=tb), _QUANTIZERS[prec])
@@ -399,6 +449,12 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    drain_kw = dict(count_headers=grid.count_headers,
+                    max_cycles=grid.max_cycles,
+                    check_conservation=check_conservation,
+                    backend=grid.backend,
+                    **(dict(devices=devs) if devs else dict(device=dev)))
 
     for mesh_name, base_cfg in resolved:
         # Compression is an extra shape class per (mesh, model): MSR changes
@@ -469,15 +525,17 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                 mc_rows = _node_rows([cfg.mc_nodes for _, _, cfg in placed],
                                      mc_pad, nv)
                 sync()
+                # Deal estimate-sorted lanes across the device shards so no
+                # shard holds only congested lanes.
+                ests = [drain_estimate(cfg, ln)
+                        for (_, _, cfg), ln in zip(placed, lens)]
+                order = _deal_order(np.repeat(ests, nv), ndev)
             t1 = time.perf_counter()
             d_chunk, d_ratio = drain_sched(base_cfg)
             with record_function("run_sweep/drain"):
-                results: List[SimResult] = simulate_batch(
-                    base_cfg, traffic, mc_nodes=mc_rows,
-                    count_headers=grid.count_headers, chunk=d_chunk,
-                    max_cycles=grid.max_cycles,
-                    check_conservation=check_conservation,
-                    backend=grid.backend, compact_ratio=d_ratio, device=dev)
+                results = _dealt(order, base_cfg, traffic, mc_rows,
+                                 chunk=d_chunk, compact_ratio=d_ratio,
+                                 **drain_kw)
             t2 = time.perf_counter()
             del traffic
 
@@ -504,6 +562,11 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                         for (_, _, cfg), tbl in zip(placed, tables)]
                     rnpkts = [int(p.num_packets) for p in rparts]
                     rt_pad = max(int(p.words.shape[-2]) for p in rparts)
+                    # The longest PE stream floors a result drain: its
+                    # lanes are dealt by that injection bound.
+                    rorder = _deal_order(np.repeat(
+                        [int(p.length.max()) if p.length.numel() else 0
+                         for p in rparts], nv), ndev)
                     rtraffic = _concat_lanes([pad_traffic_length(p, rt_pad)
                                               for p in rparts])
                     del rparts
@@ -512,13 +575,9 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                     sync()
                 t2b = time.perf_counter()
                 with record_function("run_sweep/result_drain"):
-                    rres = simulate_batch(
-                        base_cfg, rtraffic, mc_nodes=pe_rows,
-                        count_headers=grid.count_headers, chunk=d_chunk,
-                        max_cycles=grid.max_cycles,
-                        check_conservation=check_conservation,
-                        backend=grid.backend, compact_ratio=d_ratio,
-                        device=dev)
+                    rres = _dealt(rorder, base_cfg, rtraffic, pe_rows,
+                                  chunk=d_chunk, compact_ratio=d_ratio,
+                                  **drain_kw)
                 del rtraffic
             t3 = time.perf_counter()
 
@@ -538,8 +597,7 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
                 "simulate_s": round(t2 - t1, 4),
                 "cycles_per_sec": round(class_cycles / (t2 - t1), 1)
                 if t2 > t1 else None,
-                "drain_estimate": [drain_estimate(cfg, ln)
-                                   for (_, _, cfg), ln in zip(placed, lens)],
+                "drain_estimate": ests,
             }
             if rres is not None:
                 rc = sum(r.cycles for r in rres)
@@ -639,7 +697,7 @@ def run_sweep(grid: SweepGrid, layers_for_model: LayersFn, *,
         "stepped_cycles": stepped_cycles,
         "cycles_per_sec": round(stepped_cycles / sim_s, 1) if sim_s else None,
         "streamed": streamed,
-        "devices": 1,
+        "devices": ndev,
         "result_phase": grid.result_phase,
         "device": str(dev),
         "step": step,
@@ -743,12 +801,10 @@ def run_serving(grid: SweepGrid, layers_for_model: LayersFn, *,
     card one a host core, up to one a drain (the gated step is bound by
     the host's launches there).
 
-    devices: ``None`` or ``"auto"`` (one device, ``grid.device``); a list
-        of devices arrives with sharded drains (ROADMAP A15).
+    devices: passed on to :func:`run_sweep`'s batched drains; the
+        closed-loop drains run on ``grid.device``, as the reference runs
+        them on one device.
     """
-    if devices not in (None, "auto"):
-        raise NotImplementedError(
-            "devices= arrives with " + _LATER.format(15))
     if not grid.offered_loads:
         raise ValueError("run_serving needs grid.offered_loads (offered "
                          "load points in inferences per 1000 cycles)")
@@ -765,7 +821,8 @@ def run_serving(grid: SweepGrid, layers_for_model: LayersFn, *,
     base = (grid if grid.result_phase
             else dataclasses.replace(grid, result_phase=True))
     report = run_sweep(base, layers_for_model,
-                       check_conservation=check_conservation)
+                       check_conservation=check_conservation,
+                       devices=devices)
 
     dev = resolve_device(grid.device)
     t0 = time.perf_counter()

@@ -1,0 +1,86 @@
+"""Parameter and gradient trees: nested dicts, lists and tuples of tensors.
+
+The reference flattens its pytrees with ``jax.tree.leaves``: a dict's keys
+in sorted order, lists and tuples in order, ``None`` dropped. PyTorch's own
+pytree flattening keeps a dict's insertion order, so a tree built with its
+keys in another order would stream its leaves in another order; the port
+flattens with :func:`leaves`, in the reference's order, and
+:func:`unflatten` fills a tree back in that order. :func:`from_numpy`
+carries a reference tree (numpy arrays: ``init_params`` or ``jax.grad``
+trees through ``np.asarray``) across as tensors on a device.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ._device import DeviceLike, resolve_device
+
+__all__ = ["leaves", "unflatten", "map_leaves", "from_numpy"]
+
+
+def _children(node):
+    """A node's children in flattening order, or None for a leaf."""
+    if isinstance(node, dict):
+        return [node[k] for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return list(node)
+    return None
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in ``jax.tree.leaves`` order: dict keys
+    sorted, lists and tuples in order, ``None`` dropped."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [x for kid in kids for x in leaves(kid)]
+
+
+def unflatten(tree, flat) -> object:
+    """A tree shaped like ``tree`` whose leaves are ``flat``, taken in
+    :func:`leaves` order (dicts keep ``tree``'s key order)."""
+    flat = list(flat)
+    n = len(leaves(tree))
+    if len(flat) != n:
+        raise ValueError(f"{len(flat)} leaves for a tree of {n}")
+    it = iter(flat)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            filled = {k: build(node[k]) for k in sorted(node)}
+            return {k: filled[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            kids = [build(kid) for kid in node]
+            if hasattr(node, "_fields"):        # a NamedTuple
+                return type(node)(*kids)
+            return type(node)(kids)
+        return next(it)
+
+    return build(tree)
+
+
+def map_leaves(fn: Callable, tree) -> object:
+    """``fn`` of every leaf, in the structure of ``tree``."""
+    return unflatten(tree, [fn(x) for x in leaves(tree)])
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a)                     # a writable copy
+    if a.dtype.name == "bfloat16":      # numpy has no bf16 of its own
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def from_numpy(tree, device: DeviceLike = None) -> object:
+    """A tree of numpy arrays (or anything ``np.array`` takes) as the same
+    tree of tensors on ``device``, dtypes kept (bf16 included)."""
+    dev = resolve_device(device)
+    return map_leaves(lambda a: _tensor(a, dev), tree)

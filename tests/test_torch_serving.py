@@ -603,9 +603,13 @@ def test_grid_validation_matches_reference(bad):
 def test_run_serving_errors_and_exports(work):
     layers = work["layers"]
     fn = lambda _name: layers          # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError) as mine:
         sweep.run_serving(sweep.SweepGrid(**SERVING, device="cpu"), fn,
-                          devices=["cuda:0"])
+                          devices="everywhere")
+    with pytest.raises(ValueError) as theirs:
+        jrun_serving(JGrid(**SERVING), lambda _name: work["jlayers"],
+                     devices="everywhere")
+    assert str(mine.value) == str(theirs.value)
     for bad in (dict(offered_loads=()), dict(max_packets_per_layer=None),
                 dict(compression=("none", "msr"))):
         kw = dict(SERVING, **bad)

@@ -169,20 +169,42 @@ those paths against its plain PyTorch version:
                both reports; DarkNet's parameters over a one-rank NCCL
                ``DeviceMesh`` ("data", "model") by ``spec_shardings`` and
                gathered back equal;
-14. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+14. lm       - the LM stack's serving path: every arch's reduced config
+               (nine LMs, internvl2 with stubbed patch embeddings, and
+               whisper-medium's encoder, cross cache and decode steps) on
+               the card against the CPU, prefill and three teacher-forced
+               decode steps on the same seeded parameters and tokens, logits
+               within 1-5 % of their largest value (``LM_TOLS``, an arch
+               each); h2o-danube-3-4b at full width (3,961,839,360 seeded
+               random parameters, counted against ``param_count``):
+               ``Engine.generate`` (4 prompts x 128 tokens, 32 new, greedy,
+               context 256) and ``serve_offered_load`` (8 requests of 8
+               new tokens, poisson, unpaced), prefill ms, ms a decode step, tokens a second and
+               peak memory beside their bounds, eight decode steps in one
+               profiler window (the device's idle share, the kernels that
+               take its time); the static popcount layout of the whole tree
+               (``reorder_lm_params`` through the popcount kernel) and its
+               stream report layer by layer through the BT counter (24 rows,
+               every total below 2^31), the permutation, matrices and report
+               of layers 0 and 23 (past 2^31 values into the stacked block)
+               equal to the CPU's plain path, the reordered model's prefill
+               and decode logits within 4 % of the original's (the share
+               equal bit for bit printed);
+15. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
                the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
                the weight stream, each result == the plain version's;
-15. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-6 and 8-14,
+16. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6 and 8-15,
                read after); each CUDA ``descending_perm`` call of phases
                4-5 exactly one launch of the window-order kernel; the
                compression cell launched K1, the chain and its preamble,
                the faults cell and the serving grid K1 and the window
                order, the sharded drains K1, the dist reports the
-               popcount, the window order and the BT counter;
-16. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+               popcount, the window order and the BT counter, the LM's
+               static layout the popcount and the BT counter;
+17. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
                the plain versions on the CPU, and 4x4_mc2 and 8x8_mc4 x
@@ -191,17 +213,17 @@ those paths against its plain PyTorch version:
                on the CPU for both) likewise, and the same grid at fixed8
                with compression none and msr: equal rows, both phases'
                escape-bit columns included;
-17. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
+18. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
                LeNet drains at 4x4_mc2, 8x8_mc4 and 8x8_mc8: every
                candidate's rows equal (enforced by autotune_drain), the
                timings and winners printed and written beside the report
                (``drain_h100.json``, the card named in it);
-18. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
+19. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
                grid with none/msr and the result phase: its drains run the
                plain step on the card (printed), its rows equal the router
                kernel's; a duplicated packet id refused; one drain's
                timestamp ledgers equal on the card and the CPU;
-19. timing   - each kernel at its path's shapes beside its plain version,
+20. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
@@ -384,10 +406,35 @@ SHARD_CHUNK, SHARD_RAGGED_CHUNK = 128, 64
 GRAD_SEED, GRAD_BATCH = 5, 8
 GRAD_WINDOWS = (256, 4096, None)
 BUCKET_BYTES = 64 << 10
+# The LM stack (ROADMAP A17): every arch's reduced config on the card
+# against the CPU, then h2o-danube-3-4b at full width - the repo's serving
+# example (examples/serve_lm.py): dense GQA, a sliding-window ring KV cache,
+# untied embeddings - with random weights from a seed: 4 prompts x 128
+# tokens, 32 new greedy, context 256; 8 requests of 8 new tokens offered as
+# a poisson process; 16 timed decode steps, then 8 more in one profiler
+# window. Logits
+# are held to a share of their largest value (bf16 matmuls summed in another
+# order on each side): each reduced arch to LM_TOLS[arch], about three times
+# its reading on an H100 (card against CPU), at least 0.01 and never above
+# 0.05; the reordered full-width model to LM_REORDER_TOL of the original's.
+LM_ARCH = "h2o-danube-3-4b"
+LM_PARAMS = 3_961_839_360
+LM_SERVE = dict(batch=4, prompt=128, new=32, context=256, requests=8,
+                offered_new=8, load=4.0, decode_steps=16, trace_steps=8)
+LM_TOLS = {"h2o-danube-3-4b": 0.025, "internvl2-1b": 0.01,
+           "kimi-k2-1t-a32b": 0.015, "minicpm-2b": 0.025,
+           "mixtral-8x7b": 0.015, "phi3-medium-14b": 0.025,
+           "recurrentgemma-9b": 0.05, "starcoder2-15b": 0.02,
+           "whisper-medium": 0.01, "xlstm-125m": 0.01}
+LM_REORDER_TOL = 0.04
+LM_DECODE_STEPS = 3
+LM_PARAM_SEED, LM_INPUT_SEED = 0, 1
+LM_TIMING_REPS = 3
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
 # and the non-tensor 32-bit rate, used for 32-bit integer ALU work too.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 
 def fail(msg: str, code: int = 1):
@@ -1436,6 +1483,351 @@ def run_dist_phase(lparams, dnet, card: str, device: str = "cuda") -> dict:
             "launches": launches}
 
 
+def _rel_err(got, want, vocab=None) -> float:
+    """max |got - want| over max |want| (float32, over the true vocab)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if vocab is not None:
+        got, want = got[..., :vocab], want[..., :vocab]
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def _reduced_logits(arch, params, device: str) -> list:
+    """Every logits tensor of one reduced arch's serving steps on
+    ``device``: prefill and LM_DECODE_STEPS teacher-forced decode steps
+    (internvl2 with stubbed patch embeddings), or whisper's encoder, cross
+    k / v cache and decode steps. Inputs are seeded, so every device gets
+    the same ones."""
+    import torch
+    from repro_torch import tree
+    model = arch.build_reduced()
+    cfg = model.cfg
+    p = tree.map_leaves(lambda x: x.to(device), params)
+    rng = np.random.default_rng(LM_INPUT_SEED)
+    b, s = 2, 12
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s + LM_DECODE_STEPS))
+                            .astype(np.int32)).to(device)
+    out = []
+    if arch.kind == "encdec":
+        frames = torch.from_numpy(rng.standard_normal(
+            (b, 10, cfg.d_model)).astype(np.float32)).to(device)
+        cache = model.init_cache(b, 16, model.encode(p, frames), p)
+        for i in range(LM_DECODE_STEPS):
+            pos = torch.full((b,), i, dtype=torch.int32, device=device)
+            lg, cache = model.decode_step(p, toks[:, i], cache, pos)
+            out.append(lg)
+        return out
+    pe = None
+    if cfg.vlm_prefix:
+        pe = torch.from_numpy(rng.standard_normal(
+            (b, cfg.vlm_prefix, cfg.d_model)).astype(np.float32)).to(device)
+    lg, cache = model.prefill(p, toks[:, :s], 32, pe)
+    out.append(lg)
+    for i in range(LM_DECODE_STEPS):
+        pos = torch.full((b,), s + cfg.vlm_prefix + i, dtype=torch.int32,
+                         device=device)
+        lg, cache = model.decode_step(p, toks[:, s + i], cache, pos)
+        out.append(lg)
+    return out
+
+
+def run_lm_phase(card: str, device: str = "cuda") -> dict:
+    """The LM stack's serving path (ROADMAP A17) on ``device``.
+
+    1. Every arch's reduced config on the device against the CPU: the same
+       seeded parameters and inputs, each step's logits within
+       LM_TOLS[arch] of their largest value.
+    2. LM_ARCH at full width: seeded random parameters made on the device,
+       counted against ``param_count(specs)`` and LM_PARAMS;
+       ``Engine.generate`` on a prompt batch, greedy;
+       ``serve_offered_load`` (poisson, unpaced); prefill ms, ms a decode
+       step, tokens a second and peak memory beside their bounds; on the
+       card, a few decode steps in one profiler window (the device's idle
+       share and the kernels that take most of its time).
+    3. The static popcount layout of the whole tree (``reorder_lm_params``:
+       the popcount kernel) and its stream report layer by layer (the BT
+       counter; every total below 2^31); the first and the last layer's
+       permutation, reordered matrices and report equal to the CPU's plain
+       path (the last lies past 2^31 values into the stacked MLP block at
+       full width); the reordered model's prefill and teacher-forced
+       decode logits within LM_REORDER_TOL of the original's, with the
+       share equal bit for bit.
+
+    Returns the phase's report, with the kernel launches of step 3.
+    """
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.dist import (reorder_lm_params, reorder_mlp,
+                                  stream_bt_report, stream_bt_total)
+    from repro_torch.core.bt import per_flit
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_offered_load
+    from repro_torch.models import param_bytes, param_count, init_params
+    from repro_torch.serve import Engine, GenerationConfig
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_gb() -> float:
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    # 1. Reduced archs, device against the CPU.
+    t_reduced = time.perf_counter()
+    reduced = {}
+    for name in sorted(configs.ARCHS):
+        arch = configs.get(name)
+        params = init_params(arch.build_reduced().specs(),
+                             torch.Generator().manual_seed(LM_PARAM_SEED),
+                             "cpu")
+        got = _reduced_logits(arch, params, device)
+        want = _reduced_logits(arch, params, "cpu")
+        vocab = arch.reduced_config.vocab
+        errs = [_rel_err(g, w, vocab) for g, w in zip(got, want)]
+        if not all(math.isfinite(e) and e <= LM_TOLS[name] for e in errs):
+            fail(f"reduced {name} on {device}: logits off the CPU's by "
+                 f"{errs} of their largest value (tolerance "
+                 f"{LM_TOLS[name]})")
+        same = float(np.mean([bool(torch.equal(g.cpu()[..., :vocab].argmax(-1),
+                                                w[..., :vocab].argmax(-1)))
+                              for g, w in zip(got, want)]))
+        reduced[name] = {"max_rel_err": max(errs), "tolerance": LM_TOLS[name],
+                         "argmax_equal_share": same}
+    print(f"  [{card}] reduced archs on {device} == the CPU (largest error "
+          f"over the largest logit, tolerance; prefill + {LM_DECODE_STEPS} "
+          "decode steps; whisper: encoder, cross cache, decode): " + ", ".join(
+              f"{n} {r['max_rel_err']:.2e} ({r['tolerance']})"
+              for n, r in reduced.items())
+          + f"; {time.perf_counter() - t_reduced:.1f} s", flush=True)
+
+    # 2. Full width: serve.
+    model = configs.get(LM_ARCH).build()
+    serve = LM_SERVE
+    cfg = model.cfg
+    specs = model.specs()
+    n_params = param_count(specs)
+    if n_params != LM_PARAMS:
+        fail(f"{cfg.name}: param_count(specs) {n_params} != {LM_PARAMS}")
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(specs, torch.Generator(device).manual_seed(
+        LM_PARAM_SEED), device)
+    sync()
+    init_s = time.perf_counter() - t0
+    made = sum(x.numel() for x in tree.leaves(params))
+    if made != n_params:
+        fail(f"{cfg.name}: {made} parameters made, {n_params} specified")
+    b, s, new, ctx = (serve["batch"], serve["prompt"], serve["new"],
+                      serve["context"])
+    tokgen = torch.Generator(device).manual_seed(LM_INPUT_SEED)
+    prompts = torch.randint(0, cfg.vocab, (max(b, serve["requests"]), s),
+                            generator=tokgen, device=device)
+    engine = Engine(model, params, context=ctx)
+    greedy = GenerationConfig(max_new_tokens=new)
+    engine.generate(prompts[:b], GenerationConfig(max_new_tokens=2))  # warm
+    sync()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts[:b], greedy)
+    sync()
+    gen_s = time.perf_counter() - t0
+    if tuple(out.shape) != (b, new) or int(out.max()) >= cfg.vocab \
+            or int(out.min()) < 0:
+        fail(f"{cfg.name}: generated {tuple(out.shape)} tokens in "
+             f"[{int(out.min())}, {int(out.max())}], vocab {cfg.vocab}")
+
+    def prefill():
+        return model.prefill(params, prompts[:b], ctx)
+
+    prefill()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(LM_TIMING_REPS):
+        logits, cache = prefill()
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3 / LM_TIMING_REPS
+    if not bool(torch.isfinite(logits[:, :cfg.vocab]).all()):
+        fail(f"{cfg.name}: prefill logits not finite")
+    steps = serve["decode_steps"]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=device)
+        logits, cache = model.decode_step(params, out[:, i], cache, pos)
+    sync()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if not bool(torch.isfinite(logits[:, :cfg.vocab]).all()):
+        fail(f"{cfg.name}: decode logits not finite")
+    # The next decode steps in one profiler window: the union of the
+    # device's activity spans over the window's host time.
+    trace = {"steps": serve["trace_steps"], "idle_share": None}
+    if on_card:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps, steps + serve["trace_steps"]):
+                pos = torch.full((b,), s + i, dtype=torch.int32,
+                                 device=device)
+                _, cache = model.decode_step(params, out[:, i], cache, pos)
+            sync()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        spans = device_spans(prof)
+        busy = busy_us(spans) / 1e3
+        trace.update(window_ms=window_ms, busy_ms=busy,
+                     device_spans=len(spans))
+        if spans:
+            trace["idle_share"] = 1 - busy / window_ms
+            trace["top_device_ms"] = sorted(
+                ((e.self_device_time_total / 1e3, e.key, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA), reverse=True)[:8]
+    t0 = time.perf_counter()
+    outs, lat = serve_offered_load(
+        engine, prompts[:serve["requests"]],
+        GenerationConfig(max_new_tokens=serve["offered_new"]),
+        load=serve["load"], arrival="poisson", seed=0, pace=False)
+    offered_s = time.perf_counter() - t0
+    if lat["count"] != serve["requests"] or any(
+            tuple(o.shape) != (1, serve["offered_new"]) for o in outs):
+        fail(f"{cfg.name}: offered-load run served {lat['count']} of "
+             f"{serve['requests']} requests")
+    serve_peak = peak_gb()
+
+    # Bounds: a decode step reads every weight but the embedding table (B
+    # rows of it) and the KV ring; a prefill does 2 flops a weight a token
+    # in the blocks, the full masked (S, S) scores and values, and the last
+    # position's logits.
+    attn = cfg.n_layers * 4 * b * cfg.n_heads * s * s * cfg.hd
+    block = sum(x.numel() for x in tree.leaves(params["blocks"])
+                if x.dim() >= 3)
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    kv_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(cache))
+    weight_bytes = param_bytes(specs) - embed_bytes
+    decode_bound = (weight_bytes + kv_bytes + b * cfg.d_model * 2) \
+        / HBM_BYTES_PER_S * 1e3
+    prefill_flops = 2 * block * b * s + attn + 2 * cfg.d_model * \
+        cfg.padded_vocab * b
+    prefill_bound = max(prefill_flops / BF16_FLOPS_PER_S,
+                        weight_bytes / HBM_BYTES_PER_S) * 1e3
+    tok_s = b * new / gen_s
+    print(f"  [{card}] {cfg.name} full width ({n_params:,} parameters, "
+          f"{param_bytes(specs) / 1e9:.2f} GB bf16, made in {init_s:.2f} s): "
+          f"{b} prompts x {s} tokens, {new} new greedy, context {ctx}: "
+          f"generate {gen_s:.3f} s = {tok_s:.1f} tokens/s; prefill "
+          f"{prefill_ms:.3f} ms (bound {prefill_bound:.3f} ms by operations, "
+          f"{prefill_flops:.3e} flop at {BF16_FLOPS_PER_S:.3g}/s bf16); "
+          f"decode {decode_ms:.3f} ms a step over {steps} steps (bound "
+          f"{decode_bound:.3f} ms by bytes, {(weight_bytes + kv_bytes) / 1e9:.3f}"
+          f" GB at {HBM_BYTES_PER_S:.3g} B/s); peak memory {serve_peak:.2f} GB; "
+          f"offered load {serve['load']}/s poisson, {serve['requests']} "
+          f"requests of {serve['offered_new']} new tokens unpaced: p50 "
+          f"{lat['p50']} ms, p99 {lat['p99']} ms, "
+          f"{lat['throughput_rps']:.3f} requests/s ({offered_s:.1f} s)",
+          flush=True)
+    if trace["idle_share"] is None:
+        print(f"  [{card}] decode trace: not measured (no device activity "
+              "recorded)", flush=True)
+    else:
+        print(f"  [{card}] {trace['steps']} decode steps in a profiler "
+              f"window: device idle share {trace['idle_share']:.4f} (busy "
+              f"{trace['busy_ms']:.3f} ms of {trace['window_ms']:.3f} ms, "
+              f"{trace['device_spans']} device spans)", flush=True)
+        for ms_, name, n in trace["top_device_ms"]:
+            print(f"    {ms_:.3f} ms  {n} x {name[:90]}", flush=True)
+
+    # 3. The static layout.
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    new_params = reorder_lm_params(params)
+    sync()
+    reorder_s = time.perf_counter() - t0
+    mlp, new_mlp = (params["blocks"]["b0_attn"]["mlp"],
+                    new_params["blocks"]["b0_attn"]["mlp"])
+    layers, lanes = [], 16
+    for i in range(cfg.n_layers):
+        totals = [stream_bt_total({"mlp": {k: v[i] for k, v in m.items()}},
+                                  lanes) for m in (mlp, new_mlp)]
+        flits = totals[0][1]
+        if (flits - 1) * lanes * 16 >= 2**31 or not all(
+                0 <= t < 2**31 for t, _ in totals):
+            fail(f"layer {i}'s stream totals {totals} could pass 2^31")
+        before, after = (np.float32(per_flit(t, flits)) for t, _ in totals)
+        layers.append({"bt_before": totals[0][0], "bt_after": totals[1][0],
+                       "flits": flits, "bt_per_flit_before": float(before),
+                       "bt_per_flit_after": float(after),
+                       "reduction": float(np.float32(1.0) - after / before)})
+    sync()
+    layout_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    layout_peak = peak_gb()
+
+    checked = (0, cfg.n_layers - 1)
+    for i in checked:
+        one = {k: v[i] for k, v in mlp.items()}
+        cpu_new, cpu_perm = reorder_mlp({k: v.cpu() for k, v in one.items()})
+        _, perm = reorder_mlp(one)
+        if not torch.equal(perm.cpu(), cpu_perm) or not all(
+                same_bits(new_mlp[k][i].cpu(), cpu_new[k]) for k in cpu_new):
+            fail(f"layer {i}'s static layout on {device} != the CPU's plain "
+                 "path")
+        crep = stream_bt_report({"mlp": {k: v.cpu() for k, v in one.items()}},
+                                {"mlp": cpu_new}, lanes)
+        want = {k: float(v) for k, v in crep.items()}
+        got = {k: layers[i][k] for k in want}
+        if got != want:
+            fail(f"layer {i}'s stream report {got} != the CPU's plain path "
+                 f"{want}")
+    print(f"  [{card}] static layout of the whole tree: reorder_lm_params "
+          f"{reorder_s:.3f} s, {cfg.n_layers} layer reports {layout_s:.3f} s "
+          f"(launches {({k: v for k, v in launches.items() if v})}); peak "
+          f"memory {layout_peak:.2f} GB; layers {checked}: permutation, "
+          f"matrices and report == the CPU's plain path", flush=True)
+    for i, row in enumerate(layers):
+        print(f"    layer {i:2d}: BT/flit {row['bt_per_flit_before']!r} -> "
+              f"{row['bt_per_flit_after']!r} (reduction "
+              f"{row['reduction']:.6f}; totals {row['bt_before']} -> "
+              f"{row['bt_after']} over {row['flits']} flits)", flush=True)
+
+    lg0, c0 = model.prefill(params, prompts[:b], ctx)
+    lg1, c1 = model.prefill(new_params, prompts[:b], ctx)
+    errs, equal = [_rel_err(lg1, lg0, cfg.vocab)], [lg1 == lg0]
+    for i in range(LM_DECODE_STEPS):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=device)
+        lg0, c0 = model.decode_step(params, out[:, i], c0, pos)
+        lg1, c1 = model.decode_step(new_params, out[:, i], c1, pos)
+        errs.append(_rel_err(lg1, lg0, cfg.vocab))
+        equal.append(lg1 == lg0)
+    share = float(torch.stack([e[..., :cfg.vocab].float().mean()
+                               for e in equal]).mean())
+    if not all(e <= LM_REORDER_TOL for e in errs):
+        fail(f"reordered {cfg.name}'s logits off the original's by {errs} of "
+             f"their largest value (tolerance {LM_REORDER_TOL})")
+    print(f"  [{card}] reordered model: prefill and {LM_DECODE_STEPS} "
+          f"teacher-forced decode steps within {max(errs):.3e} of the "
+          f"largest logit (tolerance {LM_REORDER_TOL}); {share:.4f} of the "
+          "logits equal bit for bit", flush=True)
+    del params, new_params, cache, c0, c1
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"reduced": reduced, "arch": cfg.name, "params": n_params,
+            "init_s": init_s, "generate_s": gen_s, "tokens_per_s": tok_s,
+            "prefill_ms": prefill_ms, "prefill_bound_ms": prefill_bound,
+            "prefill_flops": prefill_flops, "decode_ms": decode_ms,
+            "decode_bound_ms": decode_bound,
+            "decode_bytes": weight_bytes + kv_bytes,
+            "decode_trace": trace,
+            "serve_peak_gb": serve_peak, "offered_load": lat,
+            "offered_s": offered_s,
+            "reorder_s": reorder_s, "layout_s": layout_s,
+            "layout_peak_gb": layout_peak, "layers": layers,
+            "reordered_max_rel_err": max(errs),
+            "reordered_bitwise_share": share, "launches": launches}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(REPO, "build",
@@ -2460,6 +2852,13 @@ def main() -> None:
         report["dist"] = run_dist_phase(lparams, dnet, card)
         dist_launches = report["dist"]["launches"]
 
+    with Phase("lm (reduced archs, card against CPU; h2o-danube-3-4b at full "
+               "width: serving, static layout)"):
+        # The static layout's popcount and BT-counter launches are counted
+        # inside (the serving steps before it launch no kernel).
+        report["lm"] = run_lm_phase(card)
+        lm_launches = report["lm"]["launches"]
+
     ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
@@ -2517,7 +2916,7 @@ def main() -> None:
                  "faults": faults_launches,
                  "serving": serving_launches,
                  "shard": shard_launches, "dist": dist_launches,
-                 "ordering_unit": unit_launches}
+                 "lm": lm_launches, "ordering_unit": unit_launches}
         launches = {k.name: sum(p[k.name] for p in paths.values())
                     for k in ops.KERNELS}
         print("  " + " | ".join(f"{n} {p}" for n, p in paths.items()),
@@ -2557,6 +2956,9 @@ def main() -> None:
         for k in ("popcount", "descending_perm", "bt_count"):
             if dist_launches[k] <= 0:
                 fail(f"the dist reports did not launch {k}")
+        for k in ("popcount", "bt_count"):
+            if lm_launches[k] <= 0:
+                fail(f"the LM's static layout did not launch {k}")
         for k in ("chain_greedy", "chain_inputs"):
             if comp_launches[k] <= 0:
                 fail(f"the compression cell's O3 did not launch {k}")

@@ -19,7 +19,7 @@ from .sharding import (DEFAULT_RULES, LocalMesh, PSpec, Rules,
                        batch_shardings, compact_batch, data_axis_size,
                        logical_to_pspec, placements, spec_shardings)
 from .static_reorder import (mlp_unit_permutation, reorder_lm_params,
-                             reorder_mlp, stream_bt_report)
+                             reorder_mlp, stream_bt_report, stream_bt_total)
 
 __all__ = [
     "sharding", "ordered_collectives", "static_reorder", "overlap",
@@ -29,6 +29,6 @@ __all__ = [
     "GradientBucket", "order_gradient_bucket", "restore_gradient_bucket",
     "gradient_wire_report",
     "mlp_unit_permutation", "reorder_mlp", "reorder_lm_params",
-    "stream_bt_report",
+    "stream_bt_report", "stream_bt_total",
     "bucketed", "unbucket",
 ]

@@ -23,7 +23,7 @@ from ..core.bits import popcount
 from ..core.flits import pack
 
 __all__ = ["mlp_unit_permutation", "reorder_mlp", "reorder_lm_params",
-           "stream_bt_report"]
+           "stream_bt_total", "stream_bt_report"]
 
 
 def mlp_unit_permutation(w: torch.Tensor) -> torch.Tensor:
@@ -108,14 +108,27 @@ def _unit_major_stream(params, wire_dtype: torch.dtype) -> torch.Tensor:
     return torch.cat(chunks)
 
 
+def _stream(params, lanes: int, wire_dtype: torch.dtype):
+    return pack(_unit_major_stream(params, wire_dtype), lanes)
+
+
+def stream_bt_total(params, lanes: int = 16,
+                    wire_dtype: torch.dtype = torch.bfloat16):
+    """(BT total, flits) of the unit-major MLP weight stream of ``params``
+    in ``lanes``-wide flits: the total as the reference's int32 sum wraps
+    (one BT-counter launch on the card), read to the host as an int."""
+    stream = _stream(params, lanes, wire_dtype)
+    return int(bt_mod.bt_stream(stream)), stream.words.shape[0]
+
+
 def stream_bt_report(before, after, lanes: int = 16,
                      wire_dtype: torch.dtype = torch.bfloat16) -> dict:
     """BT per flit of the unit-major MLP weight stream, before vs after
-    (``params`` and ``reorder_lm_params(params)``): float32 scalars."""
-    bt0 = bt_mod.bt_per_flit(pack(_unit_major_stream(before, wire_dtype),
-                                  lanes))
-    bt1 = bt_mod.bt_per_flit(pack(_unit_major_stream(after, wire_dtype),
-                                  lanes))
+    (``params`` and ``reorder_lm_params(params)``): float32 scalars. A
+    stream past 2^31 transitions wraps as the reference's int32 sum does;
+    report a large tree block by block (:func:`stream_bt_total`)."""
+    bt0 = bt_mod.bt_per_flit(_stream(before, lanes, wire_dtype))
+    bt1 = bt_mod.bt_per_flit(_stream(after, lanes, wire_dtype))
     return {
         "bt_per_flit_before": bt0,
         "bt_per_flit_after": bt1,

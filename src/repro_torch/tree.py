@@ -18,7 +18,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 
-__all__ = ["leaves", "unflatten", "map_leaves", "from_numpy"]
+__all__ = ["leaves", "unflatten", "map_leaves", "take", "from_numpy"]
 
 
 def _children(node):
@@ -69,6 +69,12 @@ def unflatten(tree, flat) -> object:
 def map_leaves(fn: Callable, tree) -> object:
     """``fn`` of every leaf, in the structure of ``tree``."""
     return unflatten(tree, [fn(x) for x in leaves(tree)])
+
+
+def take(tree, i: int) -> object:
+    """Entry ``i`` of every leaf's leading axis (views): one layer of a
+    tree stacked over layers."""
+    return map_leaves(lambda x: x[i], tree)
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:

@@ -110,13 +110,14 @@ those paths against its plain PyTorch version:
                nothing injected, on the plain step: total_bt, link_bt,
                drain cycle), rates 0 / 5e-4 / 2e-3 / 8e-3 x parity / crc8
                (seed 5, chunk 1,024) with O0/O1/O2 drained as three
-               lockstep lanes of the faulty plain step, the dead link and
+               lockstep lanes of the faulty plain step (the 8 entries in
+               spawned processes, one a host core), the dead link and
                the dead router; every entry's schedule columns (drain
                cycle, transmitted flits, protection bits, delivered,
                exhausted, retried packets, retries, rounds, flips, silent
                corruption, conservation) equal to BENCH_noc.json
                suites.faults, dead link 106 of 106 and dead router 102 + 4
-               dropped; the O1 / 2e-3 / crc8 drain alone on the card (==
+               dropped; the O1 / 5e-4 / crc8 drain alone on the card (==
                its lane of the batch) and on the CPU, every FaultDrain
                field equal; each entry's adjusted reduction against O0
                beside the record's, the faulty step's ms a cycle at three
@@ -130,7 +131,7 @@ those paths against its plain PyTorch version:
                under crc8; deadline 20,000, admit_queue_depth 8) through
                ``run_serving(..., check_conservation=True)`` (its closed-loop
                drains in one process a host core, up to one a drain): first the
-               gated step's ms a cycle at 16x16 over 1,024 cycles of the load-1
+               gated step's ms a cycle at 16x16 over 256 cycles of the load-1
                request drain, clean and at 5e-3 crc8 (one lane each), the
                grid's projected drain time, and the device's idle share over
                128 profiled gated cycles; then all 9 points' schedule columns
@@ -140,7 +141,7 @@ those paths against its plain PyTorch version:
                3 rows' cycles, flits and result columns equal to
                experiments/serving_darknet.json, BT totals printed beside the
                record's and below 2^31, and 90,112 gated cycles stepped; the
-               load-1 rate-0 point again with ``record_bt=True`` (the canonical
+               load-16 rate-0 point again with ``record_bt=True`` (the canonical
                phase drains through the router kernel == the O0 row's total_bt,
                cycles, flits and result columns); one trained-LeNet point that
                sheds under faults (4x4_mc2, 8 packets a layer, 6 inferences at
@@ -178,7 +179,7 @@ those paths against its plain PyTorch version:
                each); h2o-danube-3-4b at full width (3,961,839,360 seeded
                random parameters, counted against ``param_count``):
                ``Engine.generate`` (4 prompts x 128 tokens, 32 new, greedy,
-               context 256) and ``serve_offered_load`` (8 requests of 8
+               context 256) and ``serve_offered_load`` (4 requests of 8
                new tokens, poisson, unpaced), prefill ms, ms a decode step, tokens a second and
                peak memory beside their bounds, eight decode steps in one
                profiler window (the device's idle share, the kernels that
@@ -190,40 +191,64 @@ those paths against its plain PyTorch version:
                equal to the CPU's plain path, the reordered model's prefill
                and decode logits within 4 % of the original's (the share
                equal bit for bit printed);
-15. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+15. train    - the LM stack's training half: every arch's reduced config
+               (kimi-k2 with int8 moments, minicpm under WSD, whisper through
+               the enc-dec loss, internvl2 with zero patch embeddings): the
+               gradients at the same seeded parameters and two train steps
+               with no warmup (captured into a CUDA graph on the card)
+               against the CPU, each gradient leaf, loss, grad norm, lr, the
+               updated tree and the moments (int8 decoded) within
+               ``TRAIN_TOLS``, int8 codes differing within
+               ``TRAIN_Q8_CODE_TOL``, a stale update and zeroed moments
+               outside them; xlstm-125m at full width (70,629,120
+               parameters, counted against ``param_count``) through
+               ``launch.train.main`` (seq 128, batch 8, cosine at 3e-3, wire
+               telemetry; 20 steps, checkpoints at 10 and 20), restarted from
+               the step-10 checkpoint into a fresh state and equal to the
+               uninterrupted run; seconds a step, tokens a second, the step's
+               bound, peak memory, one more step replayed in a profiler
+               window (idle share) and run eagerly (== the replay, bit for
+               bit), its gradients' wire report (ms a call) == the CPU's
+               plain report on the same gradients in every field,
+               checkpoint seconds and bytes, every wire total below 2^31;
+               benchmarks/ordered_collectives.py's cell (reduced xlstm, 12
+               steps, the wire report at window 4,096) == the CPU's plain
+               report in every field, O1 reducing;
+16. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
                the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
                the weight stream, each result == the plain version's;
-16. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-6 and 8-15,
+17. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6 and 8-16,
                read after); each CUDA ``descending_perm`` call of phases
                4-5 exactly one launch of the window-order kernel; the
                compression cell launched K1, the chain and its preamble,
                the faults cell and the serving grid K1 and the window
                order, the sharded drains K1, the dist reports the
                popcount, the window order and the BT counter, the LM's
-               static layout the popcount and the BT counter;
-17. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+               static layout the popcount and the BT counter, the train
+               phase's gradient wire the window order and the BT counter;
+18. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
                step, O0/O3/O3a through every kernel on the card and through
                the plain versions on the CPU, and 4x4_mc2 and 8x8_mc4 x
                {edge, corner, interleaved} x {roundrobin, nearest} with the
-               result phase (O0/O1/O2, both precisions, result values summed
-               on the CPU for both) likewise, and the same grid at fixed8
-               with compression none and msr: equal rows, both phases'
-               escape-bit columns included;
-18. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
+               result phase (O0/O1/O2 at float32, result values summed on
+               the CPU for both) likewise, and the same grid at fixed8 with
+               compression none and msr: equal rows, both phases' escape-bit
+               columns included;
+19. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
                LeNet drains at 4x4_mc2, 8x8_mc4 and 8x8_mc8: every
                candidate's rows equal (enforced by autotune_drain), the
                timings and winners printed and written beside the report
                (``drain_h100.json``, the card named in it);
-19. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
+20. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
                grid with none/msr and the result phase: its drains run the
                plain step on the card (printed), its rows equal the router
                kernel's; a duplicated packet id refused; one drain's
                timestamp ledgers equal on the card and the CPU;
-20. timing   - each kernel at its path's shapes beside its plain version,
+21. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
@@ -321,6 +346,9 @@ COMP_RECORD_KEY = {"darknet": "darknet_full_16x16/16x16_mc16",
 # The pinned placement grid with both compressions (MSR reads int8: fixed8
 # only), and its 4x4 half for the packet-ledger drains.
 PLACED_MSR = dict(PLACED, precisions=("fixed8",), compression=("none", "msr"))
+# The kernel-against-plain placement sweep runs PLACED at float32 alone:
+# its fixed8 rows are PLACED_MSR's compression="none" rows, held there.
+PLACED_F32 = dict(PLACED, precisions=("float32",))
 LEDGER = dict(PLACED_MSR, meshes=("4x4_mc2",))
 TUNE_MESHES = ("4x4_mc2", "8x8_mc4", "8x8_mc8")
 # Synthetic result-phase K1 batches: (placement, affinity) lanes of one
@@ -362,6 +390,12 @@ FAULT_SCHEDULE_COLUMNS = (
     "transmission_rounds", "flip_events", "silent_corrupt",
     "conservation_ok")
 FAULT_HARD = {"dead_link": (106, 0), "dead_router": (102, 4)}
+# One lockstep lane drained alone on the card (== its lane of the batch)
+# and on the CPU (every field equal): O1 at rate 5e-4 under crc8, two
+# transmission rounds with retries in 2,048 stepped cycles, half the 2e-3
+# lane's (tests/test_torch_faults.py holds single drains to the
+# reference).
+FAULT_SINGLE = ("O1", 5e-4, "crc8")
 # Serving: benchmarks/serving.py's DarkNet grid (_darknet_grid(): trained
 # DarkNet, one glyph image, 16x16_mc16, edge, round-robin, O0/O1/O2,
 # pattern, fixed8, 8 packets a layer, the result phase; loads 1 / 4 / 16 x
@@ -389,6 +423,12 @@ SERVING_ROW_COLUMNS = ("cycles", "flits", "result_cycles", "result_flits",
 # each point and of the back-to-back probe, 61,440 of them faulty.
 SERVING_STEPPED = 90_112
 SERVING_FAULTY_CYCLES, SERVING_CLEAN_CYCLES = 61_440, 28_672
+# The gated step's ms a cycle: SERVING_TIMED_CYCLES of the load-1 request
+# drain, clean and faulty, after a 64-cycle warm-up each.
+SERVING_TIMED_CYCLES = 256
+# The grid point run again with record_bt=True (the canonical phase drains
+# through the router kernel == the O0 row): load 16, rate 0.
+SERVING_RECORD_BT_LOAD = 16.0
 # One small point with the restart protocol and faults: trained LeNet at
 # 4x4_mc2, 8 packets a layer, 6 inferences at load 8, admit_queue_depth 2,
 # rate 5e-3 under crc8, chunk 256.
@@ -410,8 +450,8 @@ BUCKET_BYTES = 64 << 10
 # against the CPU, then h2o-danube-3-4b at full width - the repo's serving
 # example (examples/serve_lm.py): dense GQA, a sliding-window ring KV cache,
 # untied embeddings - with random weights from a seed: 4 prompts x 128
-# tokens, 32 new greedy, context 256; 8 requests of 8 new tokens offered as
-# a poisson process; 16 timed decode steps, then 8 more in one profiler
+# tokens, 32 new greedy, context 256; 4 requests of 8 new tokens offered as
+# a poisson process; 8 timed decode steps, then 8 more in one profiler
 # window. Logits
 # are held to a share of their largest value (bf16 matmuls summed in another
 # order on each side): each reduced arch to LM_TOLS[arch], about three times
@@ -419,8 +459,8 @@ BUCKET_BYTES = 64 << 10
 # 0.05; the reordered full-width model to LM_REORDER_TOL of the original's.
 LM_ARCH = "h2o-danube-3-4b"
 LM_PARAMS = 3_961_839_360
-LM_SERVE = dict(batch=4, prompt=128, new=32, context=256, requests=8,
-                offered_new=8, load=4.0, decode_steps=16, trace_steps=8)
+LM_SERVE = dict(batch=4, prompt=128, new=32, context=256, requests=4,
+                offered_new=8, load=4.0, decode_steps=8, trace_steps=8)
 LM_TOLS = {"h2o-danube-3-4b": 0.025, "internvl2-1b": 0.01,
            "kimi-k2-1t-a32b": 0.015, "minicpm-2b": 0.025,
            "mixtral-8x7b": 0.015, "phi3-medium-14b": 0.025,
@@ -430,6 +470,51 @@ LM_REORDER_TOL = 0.04
 LM_DECODE_STEPS = 3
 LM_PARAM_SEED, LM_INPUT_SEED = 0, 1
 LM_TIMING_REPS = 3
+# The LM stack's training half (ROADMAP A17 part 2). Every arch's reduced
+# config takes TRAIN_REDUCED["steps"] make_train_step steps on the card and
+# on the CPU from the same seeded parameters and TokenStream batches (seq
+# 32, batch 4), under the arch's schedule over TRAIN_REDUCED["horizon"]
+# steps with no warmup, so that each step moves the bf16 parameters by
+# about the full lr. TRAIN_TOLS[arch] holds (relative L2 errors) each
+# gradient leaf and loss / grad norm / lr, the updated tree, and the
+# optimizer's moments (int8 Q8 moments decoded), each about three times
+# its largest reading on an H100, gradients and the tree never above 0.05;
+# the share of int8 codes that differ is held to TRAIN_Q8_CODE_TOL. A
+# stale update (the initial parameters) and zeroed moments must each read
+# above its limit. Then xlstm-125m at full width (the repo's training
+# example, examples/train_lm.py: seq 128, batch 8, cosine at 3e-3, wire
+# telemetry) through launch.train.main for TRAIN_FULL["steps"] steps with a
+# checkpoint halfway (and one at the end, as the launcher writes),
+# restarted from that checkpoint and held to the uninterrupted run within
+# TRAIN_RESTART_TOL (relative L2 a leaf), and its last gradients' wire
+# report on the card == the CPU's plain report in every field; then
+# benchmarks/ordered_collectives.py's cell (reduced xlstm, 12 steps of seq
+# 64 x batch 8 under cosine(3e-3, 12, warmup=2), the wire report of the
+# grads on batch 12 at window 4096, 16 lanes) on the card == the CPU's plain
+# report in every field.
+TRAIN_REDUCED = dict(steps=2, seq=32, batch=4, lr=3e-3, horizon=20)
+# (gradient leaves and metrics, updated tree, moments). Largest readings on
+# an H100 (NVIDIA H100 80GB HBM3, 700.00 W): gradient leaves 2.4e-3 to
+# 6.8e-3, updated trees 1.0e-3 to 2.2e-3, moments 2.2e-3 to 8.7e-3, int8
+# codes differing 6.1e-2; recurrentgemma (C19) 2.0e-2, 6.7e-3 and 9.1e-2.
+# A stale update reads 5.6e-2 to 1.1e-1, zeroed moments 1.0, zeroed codes
+# 0.46.
+TRAIN_TOLS = {"h2o-danube-3-4b": (0.01, 0.004, 0.01),
+              "internvl2-1b": (0.015, 0.006, 0.025),
+              "kimi-k2-1t-a32b": (0.01, 0.005, 0.02),
+              "minicpm-2b": (0.01, 0.004, 0.015),
+              "mixtral-8x7b": (0.01, 0.005, 0.01),
+              "phi3-medium-14b": (0.01, 0.004, 0.01),
+              "recurrentgemma-9b": (0.05, 0.02, 0.25),
+              "starcoder2-15b": (0.01, 0.0035, 0.012),
+              "whisper-medium": (0.02, 0.007, 0.018),
+              "xlstm-125m": (0.01, 0.003, 0.02)}
+TRAIN_Q8_CODE_TOL = 0.15
+TRAIN_FULL = dict(arch="xlstm-125m", params=70_629_120, steps=20, seq=128,
+                  batch=8, lr=3e-3, wire_reps=3)
+TRAIN_RESTART_TOL = 1e-2
+OC_CELL = dict(steps=12, seq=64, batch=8, lr=3e-3, warmup=2, window=4096,
+               lanes=16)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
 # and the non-tensor 32-bit rate, used for 32-bit integer ALU work too.
 HBM_BYTES_PER_S = 3.35e12
@@ -749,6 +834,26 @@ def check_compression_cell(rep, label: str, model: str, record: dict,
     return rec
 
 
+def _faults_entry(task):
+    """One rate x protection entry of the faults cell, its O0/O1/O2 lanes
+    drained in lockstep (a process-pool task: the batch comes on the CPU
+    and moves to ``device``). Returns (lanes, seconds)."""
+    import torch
+    from repro_torch.noc import faults
+    cfg, batch, model, device = task
+    t0 = time.perf_counter()
+    lanes = faults.simulate_faulty_batch(cfg, batch, model,
+                                         chunk=FAULT_CHUNK, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return lanes, time.perf_counter() - t0
+
+
+def _one_torch_thread() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
 def run_faults_cell(layers, card: str, device: str = "cuda") -> dict:
     """benchmarks/faults.py's cell whole on ``device``: the null-model pin
     (``simulate`` against ``simulate_faulty(FaultModel())``), the rate x
@@ -783,7 +888,7 @@ def run_faults_cell(layers, card: str, device: str = "cuda") -> dict:
                                       max_packets_per_layer=FAULT_MAXP)
            for tr in FAULT_TRANSFORMS}
     # Seconds and stepped cycles: three lockstep lanes with flips and
-    # codes (the matrix), one lane with them (O1 / 2e-3 / crc8 alone), and
+    # codes (the matrix), one lane with them (FAULT_SINGLE alone), and
     # one lane without (the null pin and the hard faults: the detour table
     # and the ledgers only).
     timed = {"three_lanes": [0.0, 0], "one_lane": [0.0, 0],
@@ -820,54 +925,73 @@ def run_faults_cell(layers, card: str, device: str = "cuda") -> dict:
           f"{clean.total_bt}, link_bt equal, drain cycle "
           f"{clean.drain_cycle}", flush=True)
 
+    # The matrix's entries are independent drains of the host-bound
+    # faulty step: on the card they run in spawned processes, one a host
+    # core up to one an entry, as run_serving drains its points (each
+    # entry's seconds are then its own process's, beside the others).
+    keys = [(protect, rate) for protect in FAULT_PROTECTS
+            for rate in FAULT_RATES]
+    tasks = [(cfg, type(batch)(*(x.to("cpu", copy=True) for x in batch[:6]),
+                               num_packets=batch.num_packets),
+              faults.FaultModel(rate=rate, protect=protect, seed=FAULT_SEED),
+              device) for protect, rate in keys]
+    procs = (min(len(tasks), len(os.sched_getaffinity(0)))
+             if device == "cuda" else 1)
+    t_matrix = time.perf_counter()
+    if procs > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(
+                procs, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_one_torch_thread) as ex:
+            done = list(ex.map(_faults_entry, tasks))
+    else:
+        done = [_faults_entry(t) for t in tasks]
+    matrix_s = time.perf_counter() - t_matrix
     entries, drains = [], {}
-    for protect in FAULT_PROTECTS:
-        for rate in FAULT_RATES:
-            model = faults.FaultModel(rate=rate, protect=protect,
-                                      seed=FAULT_SEED)
-            lanes, dt = drain(lambda: faults.simulate_faulty_batch(
-                cfg, batch, model, chunk=FAULT_CHUNK, device=device),
-                "three_lanes")
-            base_adj = None
-            for tr, fd in zip(FAULT_TRANSFORMS, lanes):
-                led = fd.ledger
-                if not led["conservation_ok"]:
-                    fail(f"conservation violated at rate={rate} "
-                         f"protect={protect} transform={tr}: {led}")
-                adj = (fd.sim.total_bt + rec[tr] // 2
-                       + led["protection_overhead_bits"] // 2)
-                base_adj = adj if tr == "O0" else base_adj
-                got = {"drain_cycle": fd.sim.drain_cycle,
-                       **{k: led[k] for k in FAULT_SCHEDULE_COLUMNS[1:]}}
-                ref = want[(tr, rate, protect)]
-                bad = {k: (got[k], ref[k]) for k in FAULT_SCHEDULE_COLUMNS
-                       if got[k] != ref[k]}
-                if bad:
-                    fail(f"faults {tr} rate {rate} {protect}: (port, "
-                         f"record) differ in {bad}")
-                entries.append({
-                    "transform": tr, "fault_rate": rate, "protect": protect,
-                    **got, "total_bt": fd.sim.total_bt, "adjusted_bt": adj,
-                    "adjusted_reduction_pct": (1 - adj / base_adj) * 100,
-                    "record_total_bt": ref["total_bt"],
-                    "record_adjusted_reduction_pct":
-                        ref["adjusted_reduction_pct"],
-                    "drain_s": dt})
-                drains[(tr, rate, protect)] = fd
-            e = entries[-1]
-            print(f"  [{card}] rate {rate:g} {protect}: drain cycle "
-                  f"{e['drain_cycle']}, {e['transmitted_flits']} flits, "
-                  f"{e['delivered']} delivered / {e['retry_exhausted']} "
-                  f"exhausted, {e['total_retries']} retries, "
-                  f"{e['flip_events']} flips, {e['silent_corrupt']} silent, "
-                  f"{e['transmission_rounds']} rounds (== record); adjusted "
-                  "reduction O1 / O2 "
-                  + " / ".join(f"{x['adjusted_reduction_pct']:.3f}"
-                               for x in entries[-2:])
-                  + " % (record "
-                  + " / ".join(f"{x['record_adjusted_reduction_pct']}"
-                               for x in entries[-2:])
-                  + f" %); {dt:.3f} s for 3 lanes", flush=True)
+    for (protect, rate), (lanes, dt) in zip(keys, done):
+        timed["three_lanes"][0] += dt
+        timed["three_lanes"][1] += lanes[0].sim.cycles
+        base_adj = None
+        for tr, fd in zip(FAULT_TRANSFORMS, lanes):
+            led = fd.ledger
+            if not led["conservation_ok"]:
+                fail(f"conservation violated at rate={rate} "
+                     f"protect={protect} transform={tr}: {led}")
+            adj = (fd.sim.total_bt + rec[tr] // 2
+                   + led["protection_overhead_bits"] // 2)
+            base_adj = adj if tr == "O0" else base_adj
+            got = {"drain_cycle": fd.sim.drain_cycle,
+                   **{k: led[k] for k in FAULT_SCHEDULE_COLUMNS[1:]}}
+            ref = want[(tr, rate, protect)]
+            bad = {k: (got[k], ref[k]) for k in FAULT_SCHEDULE_COLUMNS
+                   if got[k] != ref[k]}
+            if bad:
+                fail(f"faults {tr} rate {rate} {protect}: (port, "
+                     f"record) differ in {bad}")
+            entries.append({
+                "transform": tr, "fault_rate": rate, "protect": protect,
+                **got, "total_bt": fd.sim.total_bt, "adjusted_bt": adj,
+                "adjusted_reduction_pct": (1 - adj / base_adj) * 100,
+                "record_total_bt": ref["total_bt"],
+                "record_adjusted_reduction_pct":
+                    ref["adjusted_reduction_pct"],
+                "drain_s": dt})
+            drains[(tr, rate, protect)] = fd
+        e = entries[-1]
+        print(f"  [{card}] rate {rate:g} {protect}: drain cycle "
+              f"{e['drain_cycle']}, {e['transmitted_flits']} flits, "
+              f"{e['delivered']} delivered / {e['retry_exhausted']} "
+              f"exhausted, {e['total_retries']} retries, "
+              f"{e['flip_events']} flips, {e['silent_corrupt']} silent, "
+              f"{e['transmission_rounds']} rounds (== record); adjusted "
+              "reduction O1 / O2 "
+              + " / ".join(f"{x['adjusted_reduction_pct']:.3f}"
+                           for x in entries[-2:])
+              + " % (record "
+              + " / ".join(f"{x['record_adjusted_reduction_pct']}"
+                           for x in entries[-2:])
+              + f" %); {dt:.3f} s for 3 lanes", flush=True)
 
     hard = {}
     for name, model in (
@@ -891,30 +1015,35 @@ def run_faults_cell(layers, card: str, device: str = "cuda") -> dict:
               f"dropped, ledger closes (== record); drain cycle "
               f"{fd.sim.drain_cycle}", flush=True)
 
-    # One lockstep lane alone: the same drain as the batch's O1 lane.
-    key = ("O1", 2e-3, "crc8")
+    # One lockstep lane alone: the same drain as the batch's lane.
+    tr1, rate1, prot1 = key = FAULT_SINGLE
     single, _ = drain(lambda: faults.simulate_faulty(
-        cfg, batch.variant(FAULT_TRANSFORMS.index("O1")),
-        faults.FaultModel(rate=2e-3, protect="crc8", seed=FAULT_SEED),
+        cfg, batch.variant(FAULT_TRANSFORMS.index(tr1)),
+        faults.FaultModel(rate=rate1, protect=prot1, seed=FAULT_SEED),
         chunk=FAULT_CHUNK, device=device), "one_lane")
     diff = [f.name for f in dataclasses.fields(single)
             if not same_fault_field(getattr(single, f.name),
                                     getattr(drains[key], f.name))]
     if diff:
-        fail(f"the O1 / 2e-3 / crc8 drain alone differs from its lane of "
-             f"the three-lane batch in {diff}")
+        fail(f"the {tr1} / {rate1:g} / {prot1} drain alone differs from its "
+             f"lane of the three-lane batch in {diff}")
     wall = time.perf_counter() - t_phase
     ms_cycle = {k: (v[0] / v[1] * 1e3 if v[1] else None)
                 for k, v in timed.items()}
-    print(f"  [{card}] O1 / 2e-3 / crc8 alone == its lane of the batch; "
-          f"faulty step on {device}: {ms_cycle['three_lanes']:.3f} ms a "
-          f"cycle at three lanes ({timed['three_lanes'][1]} cycles), "
+    print(f"  [{card}] {tr1} / {rate1:g} / {prot1} alone == its lane of the "
+          f"batch; the matrix's {len(tasks)} entries in {procs} "
+          f"process(es): {matrix_s:.3f} s; faulty step on {device}: "
+          f"{ms_cycle['three_lanes']:.3f} ms a cycle at three lanes, each "
+          f"entry in its process beside up to {procs - 1} others on shared "
+          f"host cores ({timed['three_lanes'][1]} cycles), "
           f"{ms_cycle['one_lane']:.3f} at one ({timed['one_lane'][1]}), "
           f"{ms_cycle['one_lane_no_flips']:.3f} at one with no flips or "
           f"codes ({timed['one_lane_no_flips'][1]}); phase wall {wall:.3f} s",
           flush=True)
     return {"entries": entries, "hard_faults": hard,
             "zero_fault_identical": pin, "ms_per_cycle": ms_cycle,
+            # three_lanes is timed with matrix_processes entries at once
+            "matrix_s": matrix_s, "matrix_processes": procs,
             "cycles": {k: v[1] for k, v in timed.items()},
             "wall_s": wall, "single": single, "batch": batch, "cfg": cfg}
 
@@ -948,7 +1077,7 @@ def same_online(a, b) -> list:
 def run_serving_phase(dlayers, llayers, card: str,
                       device: str = "cuda") -> dict:
     """benchmarks/serving.py's DarkNet grid whole on the card, after timing
-    the gated step at 16x16; then the load-1 rate-0 point again with the
+    the gated step at 16x16; then the load-16 rate-0 point again with the
     canonical phase drains through the router kernel, and one LeNet point
     that sheds under faults on the card and on the CPU. Any mismatch with
     experiments/serving_darknet.json fails the script. ``device="cpu"``
@@ -974,8 +1103,9 @@ def run_serving_phase(dlayers, llayers, card: str,
         if device == "cuda":
             torch.cuda.synchronize()
 
-    # Measure first: 1,024 gated cycles of the load-1 request drain, clean
-    # and at rate 5e-3 under crc8, one lane each (a 64-cycle warm-up each).
+    # Measure first: SERVING_TIMED_CYCLES gated cycles of the load-1
+    # request drain, clean and at rate 5e-3 under crc8, one lane each (a
+    # 64-cycle warm-up each).
     k = g["serving_inferences"]
     arr = online.ArrivalProcess(g["arrival"], 1.0).times(k)
     cat = concat_inferences(req, k)
@@ -1003,15 +1133,16 @@ def run_serving_phase(dlayers, llayers, card: str,
         fn(64)
         sync()
         t0 = time.perf_counter()
-        fn(1024)
+        fn(SERVING_TIMED_CYCLES)
         sync()
-        ms_cycle[name] = (time.perf_counter() - t0) / 1024 * 1e3
+        ms_cycle[name] = ((time.perf_counter() - t0) / SERVING_TIMED_CYCLES
+                          * 1e3)
     projected = (SERVING_FAULTY_CYCLES * ms_cycle["faulty"]
                  + SERVING_CLEAN_CYCLES * ms_cycle["clean"]) / 1e3
     print(f"  [{card}] gated step at 16x16, one lane: "
           f"{ms_cycle['clean']:.3f} ms a cycle clean, "
-          f"{ms_cycle['faulty']:.3f} ms with flips and crc8 (1,024 cycles "
-          f"each); projected grid drains {projected:.1f} s for "
+          f"{ms_cycle['faulty']:.3f} ms with flips and crc8 "
+          f"({SERVING_TIMED_CYCLES:,} cycles each); projected grid drains {projected:.1f} s for "
           f"{SERVING_FAULTY_CYCLES} faulty + {SERVING_CLEAN_CYCLES} clean "
           "cycles", flush=True)
 
@@ -1093,12 +1224,14 @@ def run_serving_phase(dlayers, llayers, card: str,
           f"{srv['workers']} worker processes, {projected:.1f} s projected "
           f"for one; rows {rep.stats['wall_s']} s)", flush=True)
 
-    # K1 on the path: the load-1 rate-0 point again with the canonical
-    # phase drains, which carry no ledger and run the router kernel.
+    # K1 on the path: the load-16 rate-0 point again with the canonical
+    # phase drains, which carry no ledger and run the router kernel (the
+    # grid's shortest rate-0 point: 4,096 gated cycles, load 1's 16,384).
     k1 = {kk.name: kk for kk in ops.KERNELS}["router_step"]
     k1_before = k1.launches
+    load_k1 = SERVING_RECORD_BT_LOAD
     onl = online.simulate_online(
-        cfg, req, res, arrivals=online.ArrivalProcess(g["arrival"], 1.0),
+        cfg, req, res, arrivals=online.ArrivalProcess(g["arrival"], load_k1),
         num_inferences=k, compute_latency=g["compute_latency"],
         chunk=g["chunk"], record_bt=True, check_conservation=False,
         device=device)
@@ -1113,11 +1246,14 @@ def run_serving_phase(dlayers, llayers, card: str,
             o0["result_cycles"], o0["result_flits"])
     if got != want:
         fail(f"the canonical phase drains {got} != the O0 row {want}")
-    p0 = srv["points"][0]
+    p0, = [p for p in srv["points"] if p["offered_load"] == load_k1
+           and p["fault_rate"] == 0]
     if (onl.request_drain_cycle, onl.result_drain_cycle) != (
             p0["request_drain_cycle"], p0["result_drain_cycle"]):
-        fail("the load-1 rate-0 point drained differently with record_bt")
-    print(f"  [{card}] load 1 / rate 0 with record_bt ({onl.stepped_cycles} "
+        fail(f"the load-{load_k1:g} rate-0 point drained differently with "
+             "record_bt")
+    print(f"  [{card}] load {load_k1:g} / rate 0 with record_bt "
+          f"({onl.stepped_cycles} "
           f"gated cycles): canonical request "
           f"(total_bt, cycles, flits) {got[:3]} and result {got[3:]} == the "
           f"O0 row ({k1_launches} router-kernel launches)", flush=True)
@@ -1826,6 +1962,481 @@ def run_lm_phase(card: str, device: str = "cuda") -> dict:
             "layout_peak_gb": layout_peak, "layers": layers,
             "reordered_max_rel_err": max(errs),
             "reordered_bitwise_share": share, "launches": launches}
+
+
+def _leaf_rel_errs(got, want) -> list:
+    """Relative L2 error of each leaf (float64 sums on the host)."""
+    from repro_torch import tree
+    out = []
+    for g, w in zip(tree.leaves(got), tree.leaves(want)):
+        g = g.detach().double().cpu()
+        w = w.detach().double().cpu()
+        out.append(float((g - w).norm() / max(float(w.norm()), 1e-30)))
+    return out
+
+
+def _tree_rel_err(got, want) -> float:
+    """Relative L2 error of a whole tree (float64 sums on the host)."""
+    from repro_torch import tree
+    num = den = 0.0
+    for g, w in zip(tree.leaves(got), tree.leaves(want)):
+        g = g.detach().double().cpu()
+        w = w.detach().double().cpu()
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
+
+
+def _moments(opt_state, params) -> tuple:
+    """(m, v, codes): lists of each leaf's moments as float32 on the host,
+    int8 ``Q8`` moments decoded, and the list of their ``Q8`` codes (m's,
+    then v's; empty for float32 moments)."""
+    from repro_torch import tree
+    from repro_torch.optim.adamw import Q8, _q8_decode
+
+    def is_q8(x):
+        return isinstance(x, Q8)
+    out, codes = [], []
+    for moment, signed in ((opt_state.m, True), (opt_state.v, False)):
+        xs = []
+        for p, x in zip(tree.leaves(params), tree.leaves(moment, is_q8)):
+            if is_q8(x):
+                codes.append(x.q.cpu())
+                x = _q8_decode(x, p.shape, signed)
+            xs.append(x.detach().float().cpu())
+        out.append(xs)
+    return out[0], out[1], codes
+
+
+def _code_share(got, want) -> float:
+    """The share of int8 moment codes that differ."""
+    diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+    return diff / max(sum(a.numel() for a in want), 1)
+
+
+def _reduced_optimizer(arch):
+    """The reduced steps' AdamW: the arch's moment format under WSD for
+    minicpm and cosine otherwise, over TRAIN_REDUCED["horizon"] steps with
+    no warmup (each step then moves the bf16 parameters by about lr)."""
+    from repro_torch.optim import AdamW, cosine, wsd
+    c = TRAIN_REDUCED
+    sched = (wsd if "minicpm" in arch.name else cosine)(
+        c["lr"], c["horizon"], warmup=0)
+    return AdamW(sched, state_dtype=arch.optimizer_state)
+
+
+def _report_values(rep) -> dict:
+    """A wire report's fields as host numbers."""
+    return {k: (v if isinstance(v, int) else v.item())
+            for k, v in rep.items()}
+
+
+def _train_reduced(arch, device: str) -> dict:
+    """Gradients at the seeded initial parameters and TRAIN_REDUCED["steps"]
+    train steps of one reduced arch on ``device`` (on the card the step
+    captured into a CUDA graph, as the launcher runs it), from parameters
+    drawn on the CPU (the same on every device) and TokenStream
+    batches."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import loss_fn_for
+    from repro_torch.models import init_params
+    from repro_torch.train import init_state, make_train_step, value_and_grad
+    cfg_t = TRAIN_REDUCED
+    model = arch.build_reduced()
+    params = tree.map_leaves(lambda x: x.to(device), init_params(
+        model.specs(), torch.Generator().manual_seed(LM_PARAM_SEED), "cpu"))
+    loss_fn = loss_fn_for(arch, model)
+    opt = _reduced_optimizer(arch)
+    stream = TokenStream(vocab=model.cfg.vocab, seq_len=cfg_t["seq"],
+                         global_batch=cfg_t["batch"], seed=LM_INPUT_SEED)
+    _, grads = value_and_grad(loss_fn, params, stream.batch(0, device=device))
+    step = make_train_step(loss_fn, opt)
+    state = init_state(params, opt)
+    metrics = []
+    for i in range(cfg_t["steps"]):
+        state, m = step(state, stream.batch(i, device=device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"params": params, "grads": grads, "state": state,
+            "init_opt": opt.init(params), "metrics": metrics}
+
+
+def _reduced_readings(got, want) -> dict:
+    """The reduced steps on a device against the CPU's (``_train_reduced``
+    of each): the largest relative L2 error of a gradient leaf and of loss
+    / grad norm / lr, that of the updated tree and of each moment
+    (decoded), the share of int8 codes that differ, the share of elements
+    whose update differs in sign, the steps counted, and the same readings
+    for a stale update (the initial parameters) and zeroed moments (the
+    optimizer's init) against the CPU's."""
+    import torch
+    from repro_torch import tree
+    m_got, v_got, c_got = _moments(got["state"].opt, got["params"])
+    m_want, v_want, c_want = _moments(want["state"].opt, want["params"])
+    m_zero, v_zero, c_zero = _moments(want["init_opt"], want["params"])
+    flips = total = 0
+    for g1, w1, p0 in zip(tree.leaves(got["state"].params),
+                          tree.leaves(want["state"].params),
+                          tree.leaves(want["params"])):
+        dg = torch.sign(g1.float().cpu() - p0.float())
+        dw = torch.sign(w1.float() - p0.float())
+        flips += int((dg != dw).sum())
+        total += dg.numel()
+    return {
+        "grad_rel_l2": max(_leaf_rel_errs(got["grads"], want["grads"])),
+        "loss_gnorm_lr_rel": max(
+            abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            for g, w in zip(got["metrics"], want["metrics"])
+            for k in ("loss", "grad_norm", "lr")),
+        "tree_rel_l2": _tree_rel_err(got["state"].params,
+                                     want["state"].params),
+        "m_rel_l2": _tree_rel_err(m_got, m_want),
+        "v_rel_l2": _tree_rel_err(v_got, v_want),
+        "code_differs_share": _code_share(c_got, c_want) if c_want else None,
+        "steps": (int(got["state"].opt.step), int(want["state"].opt.step)),
+        "sign_differs_share": flips / total,
+        "stale_tree_rel_l2": _tree_rel_err(want["params"],
+                                           want["state"].params),
+        "zero_moments_rel_l2": min(_tree_rel_err(m_zero, m_want),
+                                   _tree_rel_err(v_zero, v_want)),
+        "zero_code_differs_share": (_code_share(c_zero, c_want)
+                                    if c_want else None),
+        "finite": all(math.isfinite(m["loss"])
+                      and math.isfinite(m["grad_norm"])
+                      for m in got["metrics"])}
+
+
+def run_train_phase(card: str, device: str = "cuda") -> dict:
+    """The LM stack's training half (ROADMAP A17 part 2) on ``device``.
+
+    1. Every arch's reduced config, the device against the CPU: gradients
+       at the same seeded parameters and batch, and TRAIN_REDUCED["steps"]
+       steps of ``make_train_step`` (kimi-k2 with its int8 moments, minicpm
+       under WSD, whisper through the enc-dec loss, internvl2 with zero
+       patch embeddings; no warmup, so every step moves the parameters):
+       the step count equal; loss, grad norm and lr of each step and each
+       gradient leaf, the updated tree, and the moments (decoded) within
+       TRAIN_TOLS[arch] (relative L2; the lr's float32 cos rounds its own
+       way on the card); kimi-k2's differing int8 codes within
+       TRAIN_Q8_CODE_TOL; a stale update and zeroed moments must fail
+       those limits. The share of elements whose update differs in sign is
+       printed, not held (Adam's first steps move an element by about +-lr
+       whatever its gradient's size, so a near-zero gradient that rounds to
+       the other sign moves it the other way).
+    2. TRAIN_FULL["arch"] at full width through ``launch.train.main`` with
+       wire telemetry (on the card the step captured into one CUDA graph):
+       TRAIN_FULL["steps"] steps with a checkpoint halfway and at the end,
+       then a restart from the halfway checkpoint (the last removed) into a
+       fresh state, trained to the end and held to the uninterrupted run;
+       seconds a step, tokens a second, the step's bound, peak memory, one
+       more step replayed in a profiler window (the device's idle share)
+       and run eagerly (== the replay, bit for bit), the wire report of its
+       gradients (ms a call) == the CPU's plain report on the same
+       gradients in every field, checkpoint seconds and bytes, and each
+       wire total below 2^31 (its worst case printed).
+    3. benchmarks/ordered_collectives.py's cell (OC_CELL) on the device: the
+       wire report of the trained reduced xlstm's gradients == the CPU's
+       plain report on the same gradients, in every field; O1 must reduce.
+
+    Returns the phase's report, with the kernel launches of the phase's
+    device runs (the CPU's comparisons launch nothing).
+    """
+    import shutil
+    import statistics
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.data import TokenStream
+    from repro_torch.dist import gradient_wire_report
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params, param_bytes, param_count
+    from repro_torch.optim import AdamW, cosine
+    from repro_torch.train import init_state, make_train_step, value_and_grad
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    # 1. Reduced archs, device against the CPU.
+    t_reduced = time.perf_counter()
+    reduced = {}
+    for name in sorted(configs.ARCHS):
+        arch = configs.get(name)
+        r = _reduced_readings(_train_reduced(arch, device),
+                              _train_reduced(arch, "cpu"))
+        tol_g, tol_t, tol_m = TRAIN_TOLS[name]
+        held = [("gradient leaf", r["grad_rel_l2"], tol_g),
+                ("loss / grad norm / lr", r["loss_gnorm_lr_rel"], tol_g),
+                ("updated tree", r["tree_rel_l2"], tol_t),
+                ("m", r["m_rel_l2"], tol_m), ("v", r["v_rel_l2"], tol_m)]
+        if r["code_differs_share"] is not None:
+            held.append(("int8 codes differing", r["code_differs_share"],
+                         TRAIN_Q8_CODE_TOL))
+        bad = [f"{what} {x:.3e} > {tol}" for what, x, tol in held
+               if not x <= tol]
+        if (not r["finite"] or bad
+                or r["steps"] != (TRAIN_REDUCED["steps"],) * 2):
+            fail(f"reduced {name} training on {device} != the CPU: {bad}; "
+                 f"steps {r['steps']}; finite {r['finite']}")
+        blind = [what for what, x, tol in (
+            ("a stale update", r["stale_tree_rel_l2"], tol_t),
+            ("zeroed moments", r["zero_moments_rel_l2"], tol_m),
+            ("zeroed int8 codes", r["zero_code_differs_share"],
+             TRAIN_Q8_CODE_TOL)) if x is not None and x <= tol]
+        if blind:
+            fail(f"reduced {name}: {blind} would pass the limits")
+        reduced[name] = {**r, "tolerances": TRAIN_TOLS[name],
+                         "optimizer_state": arch.optimizer_state}
+    reduced_s = time.perf_counter() - t_reduced
+    print(f"  [{card}] reduced archs, {TRAIN_REDUCED['steps']} train steps "
+          f"on {device} == the CPU (relative L2 error of the largest "
+          "gradient leaf / loss, grad norm or lr / the updated tree / m / v "
+          "(tolerances); a stale update / zeroed moments; share of updates "
+          "of the other sign; int8 codes differing): " + "; ".join(
+              f"{n} {r['grad_rel_l2']:.2e} / {r['loss_gnorm_lr_rel']:.1e} / "
+              f"{r['tree_rel_l2']:.2e} / {r['m_rel_l2']:.2e} / "
+              f"{r['v_rel_l2']:.2e} {r['tolerances']}; "
+              f"{r['stale_tree_rel_l2']:.2e} / "
+              f"{r['zero_moments_rel_l2']:.2f}; "
+              f"{r['sign_differs_share']:.2e}"
+              + ("" if r["code_differs_share"] is None else
+                 f"; {r['code_differs_share']:.2e} (zeroed "
+                 f"{r['zero_code_differs_share']:.2f})")
+              for n, r in reduced.items())
+          + f"; {reduced_s:.1f} s", flush=True)
+
+    # 2. Full width through the launcher, a restart from its checkpoint.
+    full = TRAIN_FULL
+    arch = configs.get(full["arch"])
+    model = arch.build()
+    specs = model.specs()
+    n_params = param_count(specs)
+    if n_params != full["params"]:
+        fail(f"{full['arch']}: param_count {n_params} != {full['params']}")
+    ckpt = os.path.join(REPO, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    half = full["steps"] // 2
+    argv = ["--arch", full["arch"], "--steps", str(full["steps"]),
+            "--seq", str(full["seq"]), "--batch", str(full["batch"]),
+            "--lr", str(full["lr"]), "--ckpt", ckpt,
+            "--ckpt-every", str(half), "--wire-telemetry"]
+    if not on_card:
+        argv += ["--device", device]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_a = launch_train.main(argv)
+    sync()
+    wall_a = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    names = sorted(os.listdir(ckpt))
+    if names != [f"step_{half:09d}", f"step_{full['steps']:09d}"]:
+        fail(f"checkpoints written {names}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, names[0], f))
+                     for f in os.listdir(os.path.join(ckpt, names[0])))
+    shutil.rmtree(os.path.join(ckpt, names[1]))
+    t0 = time.perf_counter()
+    run_b = launch_train.main(argv)
+    sync()
+    wall_b = time.perf_counter() - t0
+    capture = run_b["step_fn"].capture_s
+    if run_b["start"] != half:
+        fail(f"the restart began at step {run_b['start']}, not {half}")
+    final_a, final_b = run_a["state"], run_b["state"]
+    restart_errs = _leaf_rel_errs(final_b.params, final_a.params) + \
+        _leaf_rel_errs(final_b.opt, final_a.opt)
+    exact = all(torch.equal(a, b) for a, b in zip(tree.leaves(final_a),
+                                                  tree.leaves(final_b)))
+    if not (exact or max(restart_errs) <= TRAIN_RESTART_TOL):
+        fail(f"the restarted run's state is off the uninterrupted run's by "
+             f"{max(restart_errs):.3e} (relative L2 a leaf, tolerance "
+             f"{TRAIN_RESTART_TOL})")
+    losses_a = [m["loss"] for m in run_a["metrics"]]
+    losses_b = [m["loss"] for m in run_b["metrics"]]
+    if not all(math.isfinite(x) for x in losses_a + losses_b):
+        fail(f"{full['arch']}: losses not finite: {losses_a} {losses_b}")
+    step_s = statistics.median(run_a["step_s"][1:] + run_b["step_s"][1:])
+    tokens = full["seq"] * full["batch"]
+    flops = 6 * n_params * tokens
+    p_bytes = param_bytes(specs)
+    moment_bytes = 4 * n_params
+    step_bytes = 2 * p_bytes + 4 * moment_bytes + 2 * p_bytes
+    bound_ms = max(flops / BF16_FLOPS_PER_S,
+                   step_bytes / HBM_BYTES_PER_S) * 1e3
+    # One more step: the launcher's captured step replayed in a profiler
+    # window, and the same step run eagerly (its plain version) == the
+    # replay, bit for bit.
+    stream = TokenStream(vocab=model.cfg.vocab, seq_len=full["seq"],
+                         global_batch=full["batch"], seed=0)
+    batch = stream.batch(full["steps"], device=device)
+    trace = {"idle_share": None}
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            graphed, _ = run_b["step_fn"](final_b, batch)
+            sync()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        spans = device_spans(prof)
+        busy = busy_us(spans) / 1e3
+        trace.update(window_ms=window_ms, busy_ms=busy,
+                     device_spans=len(spans))
+        if spans:
+            trace["idle_share"] = 1 - busy / window_ms
+        del prof
+    # The eager step: the function the launcher's graph captured, on the
+    # same state and batch.
+    sync()
+    t0 = time.perf_counter()
+    eager, _, grads = run_b["step_fn"].core(final_b, batch)
+    sync()
+    eager_s = time.perf_counter() - t0
+    if on_card and not all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(graphed), tree.leaves(eager))):
+        fail("the launcher's captured train step != the same step run "
+             "eagerly")
+    wire_ms = []
+    for _ in range(full["wire_reps"]):
+        sync()
+        t0 = time.perf_counter()
+        step_wire = _report_values(gradient_wire_report(grads,
+                                                        final_b.params))
+        sync()
+        wire_ms.append((time.perf_counter() - t0) * 1e3)
+    # The same report from the plain path on the CPU, on the same
+    # gradients and parameters: every field exactly.
+    t0 = time.perf_counter()
+    plain_wire = _report_values(gradient_wire_report(
+        tree.map_leaves(lambda x: x.cpu(), grads),
+        tree.map_leaves(lambda x: x.cpu(), final_b.params)))
+    plain_wire_s = time.perf_counter() - t0
+    if step_wire != plain_wire:
+        fail(f"the full-width gradient wire report on {device} {step_wire} "
+             f"!= the CPU's plain report {plain_wire}")
+    wire = run_a["metrics"][-1]["wire"]
+    flits = -(-n_params // 256) * 256 // 8
+    worst = (flits - 1) * 16 * 16
+    for rep in (wire, step_wire):
+        for k in ("bt_baseline", "bt_o1", "bt_o2"):
+            if not 0 <= rep[k] < 2**31:
+                fail(f"the gradient wire's {k} total {rep[k]} is not below "
+                     "2^31")
+    print(f"  [{card}] {full['arch']} full width ({n_params:,} parameters, "
+          f"{p_bytes / 1e9:.3f} GB), seq {full['seq']} x batch "
+          f"{full['batch']}, cosine at {full['lr']}, wire telemetry, through "
+          f"launch.train.main: {len(run_a['step_s'])} steps in {wall_a:.1f} "
+          f"s with checkpoints at {half} and {full['steps']}, then the "
+          f"restart from step {run_b['start']}: {len(run_b['step_s'])} steps "
+          f"in {wall_b:.1f} s (the first step of each, with the capture: "
+          f"{run_a['step_s'][0]:.1f} / {run_b['step_s'][0]:.1f} s"
+          + (f", of which the eager warm-up {capture['warmup']:.1f} s and "
+             f"the capture {capture['capture']:.1f} s" if capture else "")
+          + "); final state "
+          + ("equal to the uninterrupted run's exactly" if exact else
+             f"within {max(restart_errs):.3e} of the uninterrupted run's "
+             f"(relative L2 a leaf, tolerance {TRAIN_RESTART_TOL})")
+          + f"; loss {losses_a[0]:.4f} -> {losses_a[-1]:.4f} (restart "
+          f"{losses_b[-1]:.4f})", flush=True)
+    print(f"  [{card}] {step_s * 1e3:.1f} ms a step (median after the "
+          f"first) = {tokens / step_s:.0f} tokens/s; bound {bound_ms:.3f} ms "
+          f"({flops:.3e} flop at {BF16_FLOPS_PER_S:.3g}/s bf16, "
+          f"{step_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S:.3g} B/s); peak "
+          f"memory {peak:.2f} GB; the captured step replayed in a profiler "
+          "window: device idle "
+          + ("share not measured" if trace["idle_share"] is None else
+             f"share {trace['idle_share']:.4f} (busy {trace['busy_ms']:.1f} "
+             f"ms of {trace['window_ms']:.1f} ms, {trace['device_spans']} "
+             "device spans)")
+          + f"; the same step eagerly {eager_s * 1e3:.1f} ms"
+          + (", == the replay bit for bit" if on_card else "")
+          + f"; wire report {statistics.median(wire_ms):.2f} ms a call, "
+          f"== the CPU's plain report in every field (the plain report "
+          f"{plain_wire_s:.1f} s); "
+          f"checkpoint {ckpt_bytes / 1e9:.3f} GB in "
+          + ", ".join(f"{x:.2f}" for x in run_a["ckpt_s"]) + " s", flush=True)
+    print(f"  [{card}] gradient wire at step {full['steps'] - 1}: O1 "
+          f"{wire['reduction_o1'] * 100:+.3f} % O2 "
+          f"{wire['reduction_o2'] * 100:+.3f} %, totals O0 "
+          f"{wire['bt_baseline']:,} O1 {wire['bt_o1']:,} O2 {wire['bt_o2']:,}"
+          f" below 2^31 over {flits:,} flits (worst case {worst:,} "
+          f"{'passes' if worst >= 2**31 else 'stays below'} 2^31, not 2^32: "
+          "a non-negative int32 total is exact)", flush=True)
+    ckpt_s, restart_from = run_a["ckpt_s"], run_b["start"]
+    first_a, first_b = run_a["step_s"][0], run_b["step_s"][0]
+    del final_a, run_a, run_b, grads, eager
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # 3. benchmarks/ordered_collectives.py's cell on the port.
+    oc = OC_CELL
+    t0 = time.perf_counter()
+    xarch = configs.get("xlstm-125m")
+    xmodel = xarch.build_reduced()
+    xparams = tree.map_leaves(lambda x: x.to(device), init_params(
+        xmodel.specs(), torch.Generator().manual_seed(0), "cpu"))
+    xstream = TokenStream(vocab=xmodel.cfg.vocab, seq_len=oc["seq"],
+                          global_batch=oc["batch"])
+    xopt = AdamW(cosine(oc["lr"], oc["steps"], warmup=oc["warmup"]))
+    xloss = launch_train.loss_fn_for(xarch, xmodel)
+    xstep = make_train_step(xloss, xopt)
+    xst = init_state(xparams, xopt)
+    for i in range(oc["steps"]):
+        xst, _ = xstep(xst, xstream.batch(i, device=device))
+    _, xgrads = value_and_grad(xloss, xst.params,
+                               xstream.batch(oc["steps"], device=device))
+    sync()
+    t1 = time.perf_counter()
+    xrep = gradient_wire_report(xgrads, xst.params, window=oc["window"],
+                                lanes=oc["lanes"])
+    sync()
+    us = (time.perf_counter() - t1) * 1e6
+    cpu_rep = gradient_wire_report(
+        tree.map_leaves(lambda x: x.cpu(), xgrads),
+        tree.map_leaves(lambda x: x.cpu(), xst.params),
+        window=oc["window"], lanes=oc["lanes"])
+    got, want = _report_values(xrep), _report_values(cpu_rep)
+    if got != want:
+        fail(f"the ordered-collectives cell's report on {device} {got} != "
+             f"the CPU's plain report {want}")
+    if got["reduction_o1"] <= 0:
+        fail(f"O1 must reduce BT on real gradients, got "
+             f"{got['reduction_o1']:.4f}")
+    oc_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    print(f"  [{card}] the port's ordered_collectives cell (reduced xlstm, "
+          f"its own init): ordered_collectives/gradient_allreduce,{us:.0f},"
+          f"O1_weightkeyed={got['reduction_o1'] * 100:.2f}% "
+          f"O2_selfkeyed={got['reduction_o2'] * 100:.2f}% "
+          f"baseline_bt={got['bt_baseline']:.3g}; report == the CPU's plain "
+          f"report in every field; {oc_s:.1f} s; launches of the phase "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"reduced": reduced, "reduced_s": reduced_s,
+            "full": {"arch": full["arch"], "params": n_params,
+                     "steps": full["steps"], "restart_from": restart_from,
+                     "restart_exact": exact,
+                     "restart_max_rel_l2": max(restart_errs),
+                     "wall_s": wall_a, "restart_wall_s": wall_b,
+                     "first_step_s": [first_a, first_b],
+                     "capture_s": capture,
+                     "step_s": step_s, "tokens_per_s": tokens / step_s,
+                     "bound_ms": bound_ms, "flops": flops,
+                     "step_bytes": step_bytes, "peak_gb": peak,
+                     "losses": losses_a, "restart_losses": losses_b,
+                     "trace": trace, "eager_step_s": eager_s,
+                     "wire": wire, "wire_ms": wire_ms,
+                     "step_wire": step_wire, "plain_wire_s": plain_wire_s,
+                     "wire_worst_case": worst, "flits": flits,
+                     "ckpt_s": ckpt_s, "ckpt_bytes": ckpt_bytes},
+            "ordered_collectives": {"report": got, "report_us": us,
+                                    "wall_s": oc_s},
+            "launches": launches}
 
 
 def main() -> None:
@@ -2779,15 +3390,16 @@ def main() -> None:
         # drains run the plain step (the kernel has no fault hooks).
         fcell = run_faults_cell(layers11, card)
         faults_launches = {k.name: k.launches for k in ops.KERNELS}
-        # One drain again on the CPU, on the same traffic: O1 at rate 2e-3
-        # under crc8 against the card's (equal to its lane of the batch).
+        # One drain again on the CPU, on the same traffic: FAULT_SINGLE
+        # against the card's (equal to its lane of the batch).
         from repro_torch.noc import faults as faults_mod
-        one_f = fcell["batch"].variant(FAULT_TRANSFORMS.index("O1"))
+        tr1, rate1, prot1 = FAULT_SINGLE
+        one_f = fcell["batch"].variant(FAULT_TRANSFORMS.index(tr1))
         t0 = time.perf_counter()
         cpu_f = faults_mod.simulate_faulty(
             fcell["cfg"], type(one_f)(*(t.cpu() for t in one_f[:6]),
                                       num_packets=one_f.num_packets),
-            faults_mod.FaultModel(rate=2e-3, protect="crc8",
+            faults_mod.FaultModel(rate=rate1, protect=prot1,
                                   seed=FAULT_SEED),
             chunk=FAULT_CHUNK, device="cpu")
         t_cpu = time.perf_counter() - t0
@@ -2796,10 +3408,10 @@ def main() -> None:
                 if not same_fault_field(getattr(card_f, f.name),
                                         getattr(cpu_f, f.name))]
         if diff:
-            fail(f"the card's O1 / 2e-3 / crc8 fault drain differs from the "
-                 f"CPU's in {diff}")
-        print(f"  [{card}] O1 / 2e-3 / crc8: every FaultDrain field equal on "
-              f"the card and the CPU ({t_cpu:.3f} s on the CPU, "
+            fail(f"the card's {tr1} / {rate1:g} / {prot1} fault drain "
+                 f"differs from the CPU's in {diff}")
+        print(f"  [{card}] {tr1} / {rate1:g} / {prot1}: every FaultDrain "
+              f"field equal on the card and the CPU ({t_cpu:.3f} s on the CPU, "
               f"{cpu_f.sim.cycles} cycles); K1 "
               f"{faults_launches['router_step']}, K2 order "
               f"{faults_launches['descending_perm']} launches", flush=True)
@@ -2826,7 +3438,7 @@ def main() -> None:
               f"(busy {busy:.3f} ms of {window_ms:.3f} ms)", flush=True)
         report["faults"] = {k: fcell[k] for k in (
             "entries", "hard_faults", "zero_fault_identical", "ms_per_cycle",
-            "cycles", "wall_s")}
+            "cycles", "wall_s", "matrix_s", "matrix_processes")}
         report["faults"].update(launches=faults_launches, cpu_drain_s=t_cpu,
                                 idle_share=share, busy_ms=busy,
                                 window_ms=window_ms)
@@ -2858,6 +3470,14 @@ def main() -> None:
         # inside (the serving steps before it launch no kernel).
         report["lm"] = run_lm_phase(card)
         lm_launches = report["lm"]["launches"]
+
+    with Phase("train (reduced archs, card against CPU; xlstm-125m at full "
+               "width through the launcher, with a restart; the "
+               "ordered-collectives cell)"):
+        # The phase counts its own launches (reset inside): the gradient
+        # wire report's window order and BT counter.
+        report["train"] = run_train_phase(card)
+        train_launches = report["train"]["launches"]
 
     ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
@@ -2916,7 +3536,8 @@ def main() -> None:
                  "faults": faults_launches,
                  "serving": serving_launches,
                  "shard": shard_launches, "dist": dist_launches,
-                 "lm": lm_launches, "ordering_unit": unit_launches}
+                 "lm": lm_launches, "train": train_launches,
+                 "ordering_unit": unit_launches}
         launches = {k.name: sum(p[k.name] for p in paths.values())
                     for k in ops.KERNELS}
         print("  " + " | ".join(f"{n} {p}" for n, p in paths.items()),
@@ -2959,6 +3580,9 @@ def main() -> None:
         for k in ("popcount", "bt_count"):
             if lm_launches[k] <= 0:
                 fail(f"the LM's static layout did not launch {k}")
+        for k in ("descending_perm", "bt_count"):
+            if train_launches[k] <= 0:
+                fail(f"the train phase's gradient wire did not launch {k}")
         for k in ("chain_greedy", "chain_inputs"):
             if comp_launches[k] <= 0:
                 fail(f"the compression cell's O3 did not launch {k}")
@@ -3018,10 +3642,11 @@ def main() -> None:
         sweep_mod.result_values = cpu_result_values
         try:
             t0 = time.perf_counter()
-            kernp = run_sweep(SweepGrid(**PLACED, **PINNED),
+            kernp = run_sweep(SweepGrid(**PLACED_F32, **PINNED),
                               lambda _name: layers)
             t1 = time.perf_counter()
-            plainp = run_sweep(SweepGrid(**PLACED, **PINNED, device="cpu"),
+            plainp = run_sweep(SweepGrid(**PLACED_F32, **PINNED,
+                                         device="cpu"),
                                lambda _name: layers)
             t2 = time.perf_counter()
             # The same grid at fixed8 with both compressions.
@@ -3050,13 +3675,13 @@ def main() -> None:
         report["pinned_placed_msr"] = {"rows": kernm.rows,
                                        "cuda": kernm.stats,
                                        "plain_cpu": plainm.stats}
-        check_sweep(kernp, "pinned placement sweep", 72)
+        check_sweep(kernp, "pinned placement sweep (float32)", 36)
         if kernp.rows != plainp.rows:
             fail("pinned placement x affinity x result-phase rows differ "
                  "between the kernels on the card and the plain versions on "
                  "the CPU")
-        print(f"  72 placement x affinity rows with the result phase "
-              f"identical; card sweep {t1 - t0:.3f} s (result simulate "
+        print(f"  36 float32 placement x affinity rows with the result "
+              f"phase identical; card sweep {t1 - t0:.3f} s (result simulate "
               f"{kernp.stats['result_simulate_s']} s), CPU plain sweep "
               f"{t2 - t1:.3f} s", flush=True)
         report["pinned_placed"] = {"rows": kernp.rows, "cuda": kernp.stats,

@@ -1,3 +1,3 @@
-from .pipeline import GLYPHS, glyph_batch
+from .pipeline import GLYPHS, TokenStream, glyph_batch, zipf_tokens
 
-__all__ = ["glyph_batch", "GLYPHS"]
+__all__ = ["TokenStream", "zipf_tokens", "glyph_batch", "GLYPHS"]

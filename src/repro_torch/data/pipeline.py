@@ -1,11 +1,27 @@
-"""Procedural glyph images for LeNet (the port of ``repro.data.glyph_batch``).
+"""Deterministic synthetic data: the LM token stream and procedural glyph
+images (the port of ``repro.data.pipeline``).
 
-Same procedure as the reference - a 7-segment-style digit glyph upsampled
-by nearest neighbour, centred, shifted by up to +-2 px, scaled by a random
-contrast in [0.7, 1), plus 0.15 Gaussian noise, clipped to [0, 1] - drawn
-from a ``torch.Generator``, so the numbers differ from the JAX key's.
+:class:`TokenStream` keeps the reference's contract: the global batch is a
+pure function of ``(seed, step)`` and a shard is a row slice of it, so any
+host can regenerate any other host's shard and the shard COUNT does not
+change the data. Its Zipf-distributed tokens come from the reference's
+inverse-CDF transform (:func:`zipf_tokens`) applied to uniforms that a
+``torch.Generator`` on the host draws, seeded from ``(seed, step)``: the
+same batches on every device, so a restart on the card sees the CPU's
+batches. The draws differ from the reference's ``jax.random`` counters,
+which torch cannot reproduce (ROADMAP C22); given the reference's own
+uniforms, :func:`zipf_tokens` gives its tokens up to float32 ``exp`` /
+``log`` rounding at integer boundaries (one rank, rarely).
+
+:func:`glyph_batch` is the reference's procedure - a 7-segment-style digit
+glyph upsampled by nearest neighbour, centred, shifted by up to +-2 px,
+scaled by a random contrast in [0.7, 1), plus 0.15 Gaussian noise, clipped
+to [0, 1] - drawn from a ``torch.Generator``, so the numbers differ from
+the JAX key's.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -13,7 +29,59 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 
-__all__ = ["glyph_batch", "GLYPHS"]
+__all__ = ["TokenStream", "zipf_tokens", "glyph_batch", "GLYPHS"]
+
+_UNIFORM_MIN = 1e-6
+
+
+def zipf_tokens(u: torch.Tensor, vocab: int, zipf_a: float = 1.2):
+    """The reference's inverse-CDF Zipf transform of float32 uniforms in
+    [1e-6, 1): rank ``exp(log(u) * -1/(a-1))``, truncated, minus one,
+    clipped to the vocab (int32). Ranks beyond the vocab are clamped
+    before the cast, as the reference's saturating cast leaves them."""
+    ranks = torch.exp(torch.log(u) * (-1.0 / (zipf_a - 1.0)))
+    ranks = torch.clamp(ranks, max=float(vocab))
+    return torch.clamp(ranks.to(torch.int64) - 1, 0,
+                       vocab - 1).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """Zipf-ish LM token stream with next-token targets."""
+
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.2
+
+    def uniforms(self, step: int) -> torch.Tensor:
+        """The global batch's float32 uniforms in [1e-6, 1), (global_batch,
+        seq_len + 1), drawn on the host from a generator seeded by
+        ``(seed, step)``."""
+        key = np.random.SeedSequence([self.seed, step]).generate_state(
+            1, np.uint64)[0]
+        gen = torch.Generator().manual_seed(int(key))
+        r = torch.rand((self.global_batch, self.seq_len + 1), generator=gen)
+        return torch.clamp(r * (1.0 - _UNIFORM_MIN) + _UNIFORM_MIN,
+                           min=_UNIFORM_MIN)
+
+    def batch(self, step: int, shard: int = 0, num_shards: int = 1,
+              device: DeviceLike = None):
+        """(tokens, targets, mask) for one shard of one step on ``device``
+        (the card unless the caller asks for the CPU): int32 tokens and
+        targets (B, S), float32 mask of ones, B = global_batch /
+        num_shards. The global batch is a pure function of (seed, step);
+        a shard is a row slice of it."""
+        if self.global_batch % num_shards:
+            raise ValueError("global_batch must divide by num_shards")
+        dev = resolve_device(device)
+        b = self.global_batch // num_shards
+        toks = zipf_tokens(self.uniforms(step), self.vocab, self.zipf_a)
+        toks = toks[shard * b:(shard + 1) * b].to(dev)
+        tokens, targets = toks[:, :-1], toks[:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=dev)
+        return tokens, targets, mask
 
 # 7-segment-style glyph templates for the 10 classes (rows of 5x3 cells).
 _SEGS = {

@@ -8,17 +8,20 @@ flattens with :func:`leaves`, in the reference's order, and
 :func:`unflatten` fills a tree back in that order. :func:`from_numpy`
 carries a reference tree (numpy arrays: ``init_params`` or ``jax.grad``
 trees through ``np.asarray``) across as tensors on a device.
+:func:`leaves_with_path` names each leaf as the reference's checkpoints
+do (``jax.tree_util.tree_flatten_with_path`` joined by ``/``).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
 
-__all__ = ["leaves", "unflatten", "map_leaves", "take", "from_numpy"]
+__all__ = ["leaves", "leaves_with_path", "unflatten", "map_leaves", "take",
+           "from_numpy"]
 
 
 def _children(node):
@@ -30,15 +33,35 @@ def _children(node):
     return None
 
 
-def leaves(tree) -> list:
+def leaves(tree, is_leaf: Optional[Callable] = None) -> list:
     """The leaves of ``tree`` in ``jax.tree.leaves`` order: dict keys
-    sorted, lists and tuples in order, ``None`` dropped."""
+    sorted, lists and tuples in order, ``None`` dropped; a node for which
+    ``is_leaf`` is true is a leaf."""
     if tree is None:
         return []
-    kids = _children(tree)
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         return [tree]
-    return [x for kid in kids for x in leaves(kid)]
+    return [x for kid in kids for x in leaves(kid, is_leaf)]
+
+
+def leaves_with_path(tree, prefix: str = "") -> list:
+    """``(key, leaf)`` pairs in :func:`leaves` order, each key the
+    reference checkpoint's: the path's entries joined by ``/``, a dict key
+    as itself, a list or tuple index as its number (``None`` entries are
+    dropped but keep their index), a NamedTuple field as ``.name``."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        named = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        named = [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, (list, tuple)):
+        named = [(str(i), x) for i, x in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    return [kv for name, kid in named for kv in leaves_with_path(
+        kid, f"{prefix}/{name}" if prefix else name)]
 
 
 def unflatten(tree, flat) -> object:

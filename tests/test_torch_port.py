@@ -4,7 +4,8 @@
   ``sys.modules``, and no port source names them in an import;
 * an entry point given no device raises on a machine without CUDA;
 * on a CUDA machine, each of the six Hopper kernels equals its plain
-  PyTorch version exactly (marked ``cuda``; run them on the card with
+  PyTorch version exactly, and a train step captured into a CUDA graph
+  equals the eager step (marked ``cuda``; run them on the card with
   ``python -m pytest -q -m cuda tests/test_torch_port.py``).
 """
 import dataclasses
@@ -318,3 +319,43 @@ def _synthetic_traffic(cfg, batch, packets, seed, flits=5):
                      dtype=np.uint64).astype(np.uint32)
     asm.add_chunk(0, 0, torch.from_numpy(w.view(np.int32)).cuda())
     return asm.finish()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "mixtral-8x7b"])
+def test_cuda_graph_train_step_equals_the_eager_step(arch):
+    """Three train steps of a reduced arch on the card, captured into a CUDA
+    graph and replayed, against the eager steps: every leaf of the state
+    and every metric bit for bit, the wire report included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the step is captured into a CUDA "
+                    "graph")
+    from repro_torch import configs, tree
+    from repro_torch.data import TokenStream
+    from repro_torch.dist import gradient_wire_report
+    from repro_torch.launch.train import loss_fn_for
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamW, wsd
+    from repro_torch.train import init_state, make_train_step
+    a = configs.get(arch)
+    model = a.build_reduced()
+    params = init_params(model.specs(), torch.Generator("cuda").manual_seed(0),
+                         "cuda")
+    stream = TokenStream(vocab=model.cfg.vocab, seq_len=32, global_batch=4)
+    opt = AdamW(wsd(3e-3, 10, warmup=2))
+    loss_fn = loss_fn_for(a, model)
+    graphed = make_train_step(loss_fn, opt, wire_telemetry=True)
+    x = y = init_state(params, opt)
+    for i in range(3):
+        batch = stream.batch(i, device="cuda")
+        x0 = x
+        x, mx, grads = graphed.core(x, batch)
+        mx["wire"] = gradient_wire_report(grads, x0.params)
+        y, my = graphed(y, batch)
+        assert graphed.graph is not None
+        assert all(torch.equal(u, v) for u, v in zip(tree.leaves(x),
+                                                     tree.leaves(y)))
+        for k in ("loss", "grad_norm", "lr"):
+            assert torch.equal(mx[k], my[k])
+        assert {k: float(v) for k, v in mx["wire"].items()} == {
+            k: float(v) for k, v in my["wire"].items()}

@@ -214,13 +214,27 @@ those paths against its plain PyTorch version:
                benchmarks/ordered_collectives.py's cell (reduced xlstm, 12
                steps, the wire report at window 4,096) == the CPU's plain
                report in every field, O1 reducing;
-16. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
+16. dryrun   - the dry runs (ROADMAP A18, ``launch.dryrun``): every arch x
+               SHAPES cell on the meta device for the 16x16, 2x16x16 and
+               one-card meshes (one trace a cell; spawned processes, one an
+               arch), every ``ok`` or a ``skip`` with ``supports()``'s
+               reason, a line a cell (parameters, FLOPs, argument bytes,
+               bytes a device on 16x16, peak, fit), and every hillclimb
+               variant; then h2o-danube-3-4b decode_32k, recurrentgemma-9b
+               long_500k, xlstm-125m decode_32k and every other decode cell
+               the dry run says fits one card, for real on the card
+               (``dryrun.run_on_card``: seeded random parameters, a zero
+               cache, one donated decode step): allocated bytes within the
+               allocator's rounding of the predicted argument bytes, FLOPs
+               equal, the peak beside the predicted one with their ratio,
+               finite logits; no kernel of K1-K6 runs;
+17. entry points - ``sort_windows_desc`` and ``order_unit`` at (512, 512)
                and on LeNet conv2's operands, ``chain_select`` at (12,800,
                152) on two planes, ``ops.popcount`` on conv2's operands and
                the BT recorder's ``bt_stream`` and ``ops.bt_boundaries`` on
                the weight stream, each result == the plain version's;
-17. launches - every kernel launched at least once by the path that runs it
-               (counts reset just before each of phases 4-6 and 8-16,
+18. launches - every kernel launched at least once by the path that runs it
+               (counts reset just before each of phases 4-6, 8-15 and 17,
                read after); each CUDA ``descending_perm`` call of phases
                4-5 exactly one launch of the window-order kernel; the
                compression cell launched K1, the chain and its preamble,
@@ -229,26 +243,27 @@ those paths against its plain PyTorch version:
                popcount, the window order and the BT counter, the LM's
                static layout the popcount and the BT counter, the train
                phase's gradient wire the window order and the BT counter;
-18. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
+19. parity   - the pinned-budget sweep (8 packets per layer, chunk 128):
                O0/O1/O2 through the router kernel and through the plain
-               step, O0/O3/O3a through every kernel on the card and through
-               the plain versions on the CPU, and 4x4_mc2 and 8x8_mc4 x
-               {edge, corner, interleaved} x {roundrobin, nearest} with the
-               result phase (O0/O1/O2 at float32, result values summed on
-               the CPU for both) likewise, and the same grid at fixed8 with
-               compression none and msr: equal rows, both phases' escape-bit
+               step, O0/O3/O3a (4 packets a layer) through every kernel on
+               the card and through the plain versions on the CPU, and
+               4x4_mc2 and 8x8_mc4 x {edge, corner, interleaved} x
+               {roundrobin, nearest} with the result phase (O0/O1/O2 at
+               float32, result values summed on the CPU for both) likewise,
+               and the same grid at fixed8 with compression none and msr (4
+               packets a layer): equal rows, both phases' escape-bit
                columns included;
-19. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
+20. tune     - ``noc.tune.autotune_drain`` on the card for the pinned
                LeNet drains at 4x4_mc2, 8x8_mc4 and 8x8_mc8: every
                candidate's rows equal (enforced by autotune_drain), the
                timings and winners printed and written beside the report
                (``drain_h100.json``, the card named in it);
-20. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
+21. ledger   - ``run_sweep(check_conservation=True)`` on the pinned 4x4_mc2
                grid with none/msr and the result phase: its drains run the
                plain step on the card (printed), its rows equal the router
                kernel's; a duplicated packet id refused; one drain's
                timestamp ledgers equal on the card and the CPU;
-21. timing   - each kernel at its path's shapes beside its plain version,
+22. timing   - each kernel at its path's shapes beside its plain version,
                its bound on this card and, where one exists, the PyTorch
                call computing the same function: device time per launch
                over a run of launches between one event pair, and beside it
@@ -296,6 +311,10 @@ AXES = dict(meshes=MESHES, transforms=("O0", "O1", "O2"),
             models=("lenet",))
 AXES_O3 = dict(AXES, transforms=("O0", "O3", "O3a"))
 PINNED = dict(max_packets_per_layer=8, chunk=128)
+# The two costliest kernel-against-plain sweeps (O0/O3/O3a, and the
+# placement x affinity x none/msr grid: their CPU plain sides took 63.6 and
+# 39.2 s of one run) at 4 packets a layer, to pay for the dryrun phase.
+PINNED_SHORT = dict(PINNED, max_packets_per_layer=4)
 # The pinned LeNet budget over every placement and affinity with the
 # result phase, on the 4x4 and 8x8 meshes.
 PLACED = dict(meshes=("4x4_mc2", "8x8_mc4"),
@@ -515,6 +534,18 @@ TRAIN_FULL = dict(arch="xlstm-125m", params=70_629_120, steps=20, seq=128,
 TRAIN_RESTART_TOL = 1e-2
 OC_CELL = dict(steps=12, seq=64, batch=8, lr=3e-3, warmup=2, window=4096,
                lanes=16)
+# The dry runs (ROADMAP A18): every arch x SHAPES cell on the meta device
+# for the 16x16, 2x16x16 and one-card meshes (one trace a cell), in
+# spawned processes, one an arch, each also running the hillclimb variants
+# of its arch; then DRYRUN_CARD_CELLS, and every other decode cell the dry
+# run says fits one card, for real on the card: seeded random parameters
+# (DRYRUN_SEED), a zero cache, one donated decode step, held to the dry
+# run's argument bytes (within the allocator's rounding), FLOPs (exactly)
+# and peak (printed with the ratio).
+DRYRUN_CARD_CELLS = (("h2o-danube-3-4b", "decode_32k"),
+                     ("recurrentgemma-9b", "long_500k"),
+                     ("xlstm-125m", "decode_32k"))
+DRYRUN_SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate,
 # and the non-tensor 32-bit rate, used for 32-bit integer ALU work too.
 HBM_BYTES_PER_S = 3.35e12
@@ -2107,6 +2138,155 @@ def _reduced_readings(got, want) -> dict:
                       for m in got["metrics"])}
 
 
+def _dryrun_task(task):
+    """A process-pool task of the dry-run table: one arch x shape's records
+    on the three meshes (with ``table``), then the named hillclimb variants
+    (one meta trace serves a cell's meshes and the variants that trace the
+    same program). The card's bytes come from the parent: a worker does not
+    open the card."""
+    name, shape, table, picks, out_dir, card = task
+    from repro_torch.launch import dryrun, hillclimb
+    t0 = time.perf_counter()
+    traces = {}
+    recs = {m: dryrun.run_cell(name, shape, mesh=m, out_dir=out_dir,
+                               traces=traces, card=card)
+            for m in (dryrun.MESHES if table else ())}
+    hc = dict(zip(picks, hillclimb.main(picks, out_dir=out_dir,
+                                        traces=traces, card=card))) \
+        if picks else {}
+    return name, shape, recs, hc, time.perf_counter() - t0
+
+
+def run_dryrun_phase(card: str) -> dict:
+    """The dry runs (ROADMAP A18) on the meta device, then the cells that
+    fit one card for real on the card (``dryrun.run_on_card``)."""
+    import gc
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun, hillclimb
+
+    card_bytes = dryrun.card_bytes()
+    print(f"  [{card}] card bytes {card_bytes[0]:,} "
+          f"({card_bytes[1]}); dryrun.CARD_BYTES_H100 "
+          f"{dryrun.CARD_BYTES_H100:,}", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
+    # the costliest cells first: train steps (xlstm's two traces, kimi-k2
+    # with its hillclimb variant), then prefills, then the decode steps
+    mode = {"train": 0, "prefill": 1, "decode": 2}
+    cells = sorted(((n, sh) for n in configs.ARCHS for sh in SHAPES),
+                   key=lambda c: (mode[SHAPES[c[1]].mode],
+                                  c[0] not in ("xlstm-125m",
+                                               "kimi-k2-1t-a32b"), c))
+    # hillclimb variants grouped by the program they trace: those that
+    # change only the specs go with their cell, those that change the model
+    # (kv_chunk, moe_groups) make a task a program
+    groups = {}
+    for v, (a, sh, _, ov) in hillclimb.VARIANTS.items():
+        key = (a, sh, ov.get("kv_chunk"), ov.get("moe_groups"))
+        groups.setdefault(key, []).append(v)
+    tasks = [(n, sh, True, groups.pop((n, sh, None, None), []), out_dir,
+              card_bytes) for n, sh in cells]
+    tasks[10:10] = [(k[0], k[1], False, vs, out_dir, card_bytes)
+                    for k, vs in groups.items()]
+    t0 = time.perf_counter()
+    try:
+        with ProcessPoolExecutor(max_workers=len(os.sched_getaffinity(0)),
+                                 mp_context=get_context("spawn"),
+                                 initializer=_one_torch_thread) as ex:
+            done = list(ex.map(_dryrun_task, tasks))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    table_s = time.perf_counter() - t0
+    recs, variants, cell_s = {}, {}, {}
+    for name, shape, table, hc, dt in done:
+        cell_s[f"{name}/{shape}" + ("" if table else "/hillclimb")] = dt
+        variants.update(hc)
+        for mesh, rec in table.items():
+            recs[(name, shape, mesh)] = rec
+    bad = []
+    for (name, shape, mesh), rec in recs.items():
+        ok, reason = configs.get(name).supports(shape)
+        want = "ok" if ok else "skip"
+        if rec["status"] != want or rec["reason"] != reason:
+            bad.append(f"{name} x {shape} x {mesh}: {rec['status']} "
+                       f"{rec.get('error', rec['reason'])[:300]}")
+    bad += [f"hillclimb {v}: {r['status']} {r.get('error', '')[:300]}"
+            for v, r in variants.items() if r["status"] != "ok"]
+    if len(variants) != len(hillclimb.VARIANTS):
+        bad.append(f"{len(variants)} of {len(hillclimb.VARIANTS)} hillclimb "
+                   "variants ran")
+    if bad:
+        fail("dry run: " + "; ".join(bad))
+    for name in sorted(configs.ARCHS):
+        for shape in SHAPES:
+            r = recs[(name, shape, "card1x1")]
+            if r["status"] == "skip":
+                print(f"  {name} x {shape}: skip ({r['reason']})",
+                      flush=True)
+                continue
+            pod = recs[(name, shape, "pod16x16")]
+            how = " (extrapolated)" if "extra" in r["count_method"] else ""
+            print(f"  {name} x {shape}: {r['params']:,} params, "
+                  f"{r['flops']:.4e} FLOPs, args "
+                  f"{r['argument_bytes']['total'] / 1e9:.2f} GB (16x16 "
+                  f"{pod['argument_bytes_per_device']['total'] / 1e9:.3f} "
+                  f"GB a device), peak {r['peak_bytes'] / 1e9:.2f} GB "
+                  f"({r['peak_is']}), fits one H100 {r['fits_one_h100']}; "
+                  f"trace {r['trace_s']} s{how}",
+                  flush=True)
+    slow = max(cell_s, key=cell_s.get)
+    print(f"  [{card}] {len(recs)} records, {len(variants)} hillclimb "
+          f"variants in {table_s:.1f} s ({len(done)} tasks on "
+          f"{len(os.sched_getaffinity(0))} processes; the slowest {slow}, "
+          f"{cell_s[slow]:.1f} s)", flush=True)
+
+    # The cells that fit, for real on the card.
+    fits = [(n, s) for (n, s, m), r in sorted(recs.items())
+            if m == "card1x1" and r["status"] == "ok"
+            and SHAPES[s].mode == "decode" and r["fits_one_h100"] is True]
+    for cell in DRYRUN_CARD_CELLS:
+        if cell not in fits:
+            fail(f"dry run: {cell[0]} x {cell[1]} does not fit one card "
+                 f"(peak {recs[cell + ('card1x1',)].get('peak_bytes')})")
+    cells = list(DRYRUN_CARD_CELLS) + [c for c in fits
+                                       if c not in DRYRUN_CARD_CELLS]
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = {}
+    t0 = time.perf_counter()
+    for name, shape in cells:
+        try:
+            got = dryrun.run_on_card(name, shape,
+                                     recs[(name, shape, "card1x1")],
+                                     seed=DRYRUN_SEED)
+        except AssertionError as e:
+            fail(f"dry run on the card: {e}")
+        real[f"{name}/{shape}"] = got
+        print(f"  [{card}] {name} x {shape} on the card: allocated "
+              f"{got['allocated_bytes']:,} B for {got['argument_bytes']:,} "
+              f"predicted (+{got['allocated_bytes'] - got['argument_bytes']:,}"
+              f", bound {got['alloc_bound_bytes']:,} over {got['tensors']} "
+              f"tensors); FLOPs {got['flops']:,} == the dry run's; peak "
+              f"{got['peak_bytes'] / 1e9:.3f} GB against "
+              f"{got['peak_want'] / 1e9:.3f} predicted (ratio "
+              f"{got['peak_ratio']:.4f}); logits finite; gc "
+              f"{got['gc_s']:.2f} s, build {got['build_s']:.2f} s, step "
+              f"{got['step_s']:.3f} s",
+              flush=True)
+    real_s = time.perf_counter() - t0
+    return {"card_bytes": card_bytes[0], "table_s": table_s,
+            "cell_s": cell_s, "real_s": real_s, "on_card": real,
+            "records": {"/".join(k): {kk: v for kk, v in r.items()
+                                      if kk != "trace"}
+                        for k, r in recs.items()},
+            "hillclimb": variants}
+
+
 def run_train_phase(card: str, device: str = "cuda") -> dict:
     """The LM stack's training half (ROADMAP A17 part 2) on ``device``.
 
@@ -3479,6 +3659,11 @@ def main() -> None:
         report["train"] = run_train_phase(card)
         train_launches = report["train"]["launches"]
 
+    with Phase("dryrun (every arch x shape on meta for three meshes, the "
+               "hillclimb variants; the cells that fit, on the card)"):
+        # No kernel of K1-K6 runs here: the LM stack is plain PyTorch.
+        report["dryrun"] = run_dryrun_phase(card)
+
     ops.reset_launch_counts()
     with Phase("entry points (ordering unit, chain select, popcount, BT)"):
         # The ordering-unit entry points as benchmarks/ordering_throughput.py
@@ -3613,10 +3798,10 @@ def main() -> None:
         # O3/O3a: every kernel on the card against every plain version on
         # the CPU (the chain, the popcount and the router step).
         t0 = time.perf_counter()
-        kern3 = run_sweep(SweepGrid(**AXES_O3, **PINNED, backend="cuda"),
+        kern3 = run_sweep(SweepGrid(**AXES_O3, **PINNED_SHORT, backend="cuda"),
                           lambda _name: layers)
         t1 = time.perf_counter()
-        plain3 = run_sweep(SweepGrid(**AXES_O3, **PINNED, device="cpu"),
+        plain3 = run_sweep(SweepGrid(**AXES_O3, **PINNED_SHORT, device="cpu"),
                            lambda _name: layers)
         t2 = time.perf_counter()
         check_sweep(kern3, "pinned O3 sweep", 36)
@@ -3650,10 +3835,10 @@ def main() -> None:
                                lambda _name: layers)
             t2 = time.perf_counter()
             # The same grid at fixed8 with both compressions.
-            kernm = run_sweep(SweepGrid(**PLACED_MSR, **PINNED),
+            kernm = run_sweep(SweepGrid(**PLACED_MSR, **PINNED_SHORT),
                               lambda _name: layers)
             t3 = time.perf_counter()
-            plainm = run_sweep(SweepGrid(**PLACED_MSR, **PINNED,
+            plainm = run_sweep(SweepGrid(**PLACED_MSR, **PINNED_SHORT,
                                          device="cpu"),
                                lambda _name: layers)
             t4 = time.perf_counter()

@@ -2,9 +2,12 @@
 ``repro.configs.common``).
 
 Each architecture is one :class:`ArchDef`: its full config, a small
-same-family config (``build_reduced``), its sharding rules, and the shape
-cells it supports. Shardings are ``torch.distributed.tensor`` placements
-through ``dist.sharding`` (the reference's ``NamedSharding`` trees).
+same-family config (``build_reduced``), its sharding rules, the shape
+cells it supports, and the inputs of each cell's function as meta tensors
+(``input_specs``: the reference's ShapeDtypeStructs, with no storage).
+Shardings are ``torch.distributed.tensor`` placements through
+``dist.sharding`` (the reference's ``NamedSharding`` trees); the
+``*_pspecs`` functions give the specs they come from.
 Modality frontends are stubs, as in the reference: VLM archs take
 precomputed patch embeddings, audio archs precomputed frame embeddings.
 """
@@ -12,6 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+import torch
 
 from ..dist.sharding import (DEFAULT_RULES, PSpec, Rules, logical_to_pspec,
                              placements, spec_shardings)
@@ -43,6 +48,13 @@ _CACHE_RULES: Rules = {
     "batch": "data", "seq": "model", "kv_heads": None, "head_dim": None,
     "state": "model", "heads": "model", "layers": None, "embed": "model",
 }
+
+_I32 = torch.int32
+_BF16 = torch.bfloat16
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _cache_axes_for(path: str, rank: int) -> Tuple[Optional[str], ...]:
@@ -119,15 +131,57 @@ class ArchDef:
         return True, ""
 
     # -- dry-run inputs ------------------------------------------------
-    def input_specs(self, shape_name: str):
-        raise NotImplementedError(
-            "input_specs feeds the dry runs, a later slice of the port "
-            "(ROADMAP queue A, item 18)")
+    def input_specs(self, shape_name: str,
+                    seq_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Meta tensors for the non-(params / state) inputs of the cell;
+        ``seq_len`` stands in for the cell's length (the dry run traces
+        xLSTM cells at short lengths)."""
+        cell = SHAPES[shape_name]
+        cfg = self.config
+        b = cell.global_batch
+        s = cell.seq_len if seq_len is None else seq_len
+        if self.kind == "encdec":
+            s_dec = max(s // 4, 8)
+            if cell.mode == "train":
+                return {"frames": _meta((b, s, cfg.d_model), _BF16),
+                        "tokens": _meta((b, s_dec), _I32),
+                        "targets": _meta((b, s_dec), _I32),
+                        "mask": _meta((b, s_dec), torch.float32)}
+            if cell.mode == "prefill":
+                return {"frames": _meta((b, s, cfg.d_model), _BF16),
+                        "tokens": _meta((b, s_dec), _I32)}
+            return {"token": _meta((b,), _I32), "pos": _meta((b,), _I32)}
+        if cell.mode == "train":
+            specs = {"tokens": _meta((b, s), _I32),
+                     "targets": _meta((b, s), _I32),
+                     "mask": _meta((b, s), torch.float32)}
+        elif cell.mode == "prefill":
+            specs = {"tokens": _meta((b, s), _I32)}
+        else:
+            specs = {"token": _meta((b,), _I32), "pos": _meta((b,), _I32)}
+        if getattr(cfg, "vlm_prefix", 0) and cell.mode != "decode":
+            specs["patch_embeds"] = _meta((b, cfg.vlm_prefix, cfg.d_model),
+                                          _BF16)
+        return specs
 
-    def input_shardings(self, specs, mesh):
-        raise NotImplementedError(
-            "input_shardings feeds the dry runs, a later slice of the port "
-            "(ROADMAP queue A, item 18)")
+    def input_pspecs(self, specs, mesh) -> Dict[str, PSpec]:
+        """Batch-sharded inputs (replicated where the batch does not divide
+        the data axes). Token-like inputs carry a logical 'seq' second axis,
+        so a per-arch rule can turn on sequence parallelism (None under the
+        default rules)."""
+        out = {}
+        for k, v in specs.items():
+            rank = len(v.shape)
+            axes = ("batch",) + (None,) * (rank - 1)
+            if k in ("tokens", "targets", "mask", "frames") and rank >= 2:
+                axes = ("batch", "seq") + (None,) * (rank - 2)
+            out[k] = logical_to_pspec(axes, tuple(v.shape), self.rules, mesh)
+        return out
+
+    def input_shardings(self, specs, mesh) -> Dict[str, list]:
+        """DTensor placements of every input, by name."""
+        return {k: placements(s, mesh)
+                for k, s in self.input_pspecs(specs, mesh).items()}
 
     def param_shardings(self, mesh):
         return spec_shardings(self.build().specs(), self.rules, mesh)

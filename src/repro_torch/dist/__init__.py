@@ -17,15 +17,16 @@ from .ordered_collectives import (GradientBucket, gradient_wire_report,
 from .overlap import bucketed, unbucket
 from .sharding import (DEFAULT_RULES, LocalMesh, PSpec, Rules,
                        batch_shardings, compact_batch, data_axis_size,
-                       logical_to_pspec, placements, spec_shardings)
+                       logical_to_pspec, placements, spec_pspecs,
+                       spec_shardings)
 from .static_reorder import (mlp_unit_permutation, reorder_lm_params,
                              reorder_mlp, stream_bt_report, stream_bt_total)
 
 __all__ = [
     "sharding", "ordered_collectives", "static_reorder", "overlap",
     "Rules", "DEFAULT_RULES", "PSpec", "LocalMesh", "logical_to_pspec",
-    "placements", "spec_shardings", "batch_shardings", "compact_batch",
-    "data_axis_size",
+    "placements", "spec_pspecs", "spec_shardings", "batch_shardings",
+    "compact_batch", "data_axis_size",
     "GradientBucket", "order_gradient_bucket", "restore_gradient_bucket",
     "gradient_wire_report",
     "mlp_unit_permutation", "reorder_mlp", "reorder_lm_params",

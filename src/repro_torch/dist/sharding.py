@@ -40,7 +40,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
 from ..tree import leaves, map_leaves, unflatten
 
 __all__ = ["Rules", "DEFAULT_RULES", "PSpec", "LocalMesh", "mesh_axes",
-           "logical_to_pspec", "placements", "spec_shardings",
+           "logical_to_pspec", "placements", "spec_pspecs", "spec_shardings",
            "batch_shardings", "compact_batch", "data_axis_size"]
 
 Rules = Dict[str, Union[None, str, Tuple[str, ...]]]
@@ -161,6 +161,13 @@ def placements(spec: PSpec, mesh) -> List:
         for i in dims:
             out[i] = Shard(d)
     return out
+
+
+def spec_pspecs(specs, rules: Rules, mesh):
+    """The spec of every ParamSpec of a spec tree, in its structure (the
+    reference's ``NamedSharding`` tree's ``.spec`` entries)."""
+    return map_leaves(lambda s: logical_to_pspec(s.axes, s.shape, rules,
+                                                 mesh), specs)
 
 
 def spec_shardings(specs, rules: Rules, mesh):

@@ -181,9 +181,10 @@ class EncDec:
             cache["memory"] = memory
         return cache
 
-    def decode_step(self, params, token, cache, pos):
+    def decode_step(self, params, token, cache, pos, donate: bool = False):
         """token (B,), pos (B,). Cross-attends the cached (or recomputed)
-        k / v; returns (logits (B, V), new cache)."""
+        k / v; returns (logits (B, V), new cache). ``donate``: the step
+        writes its self-attention entries into ``cache`` and returns it."""
         cfg = self.cfg
         self_cfg, cross_cfg = cfg.attn_cfg(True), cfg.attn_cfg(False)
         precomputed = "cross" in cache
@@ -200,7 +201,8 @@ class EncDec:
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
             a, kv = L.attention_decode(
                 p["self_attn"], h, self_cfg,
-                L.KVCache(cache["self"].k[i], cache["self"].v[i]), pos)
+                L.KVCache(cache["self"].k[i], cache["self"].v[i]), pos,
+                **({"donate": True} if donate else {}))
             new_k.append(kv.k)
             new_v.append(kv.v)
             x = x + a
@@ -214,6 +216,8 @@ class EncDec:
             h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
             x = x + L.mlp(p["mlp"], h, gated=False)
         logits = self._logits(params, x)[:, 0]
+        if donate:
+            return logits, cache
         new_cache = dict(cache)
         new_cache["self"] = L.KVCache(torch.stack(new_k), torch.stack(new_v))
         return logits, new_cache

@@ -211,12 +211,14 @@ def attention(params, x: torch.Tensor, cfg: AttnConfig,
 
 
 def attention_decode(params, x: torch.Tensor, cfg: AttnConfig,
-                     cache: KVCache, pos: torch.Tensor):
+                     cache: KVCache, pos: torch.Tensor, donate: bool = False):
     """One-token decode: x (B, 1, D), pos (B,) absolute position.
 
     Returns (out (B, 1, D), new cache). The cache is a ring of length
     ``s_cache`` (``min(window, context)`` for SWA archs): position ``p``
-    lives in slot ``p % s_cache``. The caller's cache is left as it was.
+    lives in slot ``p % s_cache``. The caller's cache is left as it was,
+    unless ``donate``: then the new entries are written into it (views
+    included) and it is returned as the new cache.
     """
     b = x.shape[0]
     s_cache = cache.k.shape[1]
@@ -226,8 +228,9 @@ def attention_decode(params, x: torch.Tensor, cfg: AttnConfig,
         k = rope(k, pos[:, None], cfg.rope_theta)
     slot = (pos % s_cache)[:, None]
     bidx = torch.arange(b, device=x.device)[:, None]
-    new_k = cache.k.index_put((bidx, slot), k.to(cache.k.dtype))
-    new_v = cache.v.index_put((bidx, slot), v.to(cache.v.dtype))
+    put = "index_put_" if donate else "index_put"
+    new_k = getattr(cache.k, put)((bidx, slot), k.to(cache.k.dtype))
+    new_v = getattr(cache.v, put)((bidx, slot), v.to(cache.v.dtype))
     # positions currently held by each cache slot (ring semantics)
     slots = torch.arange(s_cache, device=x.device)[None, :]
     wraps = torch.div(pos[:, None], s_cache, rounding_mode="floor")

@@ -259,9 +259,12 @@ def slstm_cell(params, x, state: SLSTMState, n_heads: int):
 
 
 def slstm_init_state(b: int, d: int, device=None) -> SLSTMState:
-    z = torch.zeros((b, d), dtype=_F32, device=device)
-    return SLSTMState(z, z, torch.full((b, d), -1e30, dtype=_F32,
-                                       device=device), z)
+    """Zero c, n and h, m at -1e30; each its own tensor, so a donated
+    decode step (``LM.decode_step(donate=True)``) can write each."""
+    def z():
+        return torch.zeros((b, d), dtype=_F32, device=device)
+    return SLSTMState(z(), z(), torch.full((b, d), -1e30, dtype=_F32,
+                                           device=device), z())
 
 
 def slstm_scan_state(params, x: torch.Tensor, n_heads: int):

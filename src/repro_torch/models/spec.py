@@ -87,10 +87,10 @@ def init_params(specs, generator: torch.Generator,
 
 def abstract_params(specs):
     """Shape-only parameters for a dry run (the reference's
-    ShapeDtypeStruct tree)."""
-    raise NotImplementedError(
-        "abstract_params arrives with the dry runs, a later slice of the "
-        "port (ROADMAP queue A, item 18)")
+    ShapeDtypeStruct tree): tensors on the meta device, each of its spec's
+    shape and dtype, with no storage behind them."""
+    return _map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                specs)
 
 
 def axes_tree(specs):

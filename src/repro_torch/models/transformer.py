@@ -17,8 +17,11 @@ cache carried across with ``tree.from_numpy`` is a valid cache here.
 
 Three modes share the block code: "train" (no cache), "prefill" (returns
 the cache), "decode" (one token, consumes the cache). No mode writes into a
-cache it was given. ``remat`` changes no forward value: it takes effect
-with the trainer.
+cache it was given, unless a decode step is told to (``donate=True``, the
+counterpart of donating the cache to a jitted step): then it writes the new
+entries and states into the caller's cache and returns that cache, so a
+step holds one cache, not two. ``remat`` changes no forward value: it takes
+effect with the trainer.
 """
 from __future__ import annotations
 
@@ -161,8 +164,18 @@ def _apply_mlp(params, cfg: LMConfig, x):
     return L.mlp(params["mlp"], x, cfg.gated_mlp), 0.0
 
 
-def _block_apply(kind: str, cfg: LMConfig, params, x, mode: str, cache, pos):
-    """x (B, S, D) [S=1 in decode]; returns (x, new_cache, aux_loss)."""
+def _donated(cache, new):
+    """Write a decode step's new cache leaves into the given ones; returns
+    the given cache."""
+    for old, fresh in zip(leaves(cache), leaves(new)):
+        old.copy_(fresh)
+    return cache
+
+
+def _block_apply(kind: str, cfg: LMConfig, params, x, mode: str, cache, pos,
+                 donate: bool = False):
+    """x (B, S, D) [S=1 in decode]; returns (x, new_cache, aux_loss).
+    ``donate``: a decode step writes into ``cache`` (see the module)."""
     aux = 0.0
     if kind == "attn":
         h = L.rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -172,8 +185,9 @@ def _block_apply(kind: str, cfg: LMConfig, params, x, mode: str, cache, pos):
         elif mode == "prefill":
             a, new_cache = _attention_prefill(params["attn"], h, cfg, cache)
         else:
-            a, new_cache = L.attention_decode(params["attn"], h, cfg.attn_cfg,
-                                              cache, pos)
+            a, new_cache = L.attention_decode(
+                params["attn"], h, cfg.attn_cfg, cache, pos,
+                **({"donate": True} if donate else {}))
         if cfg.tp_bf16_boundary:
             a = a.to(_BF16)
         x = x + a
@@ -194,6 +208,8 @@ def _block_apply(kind: str, cfg: LMConfig, params, x, mode: str, cache, pos):
                                       R.RGLRUState(cache["h"]))
             y = r_out[:, None, :]
             new_cache = {"h": rst.h, "conv": conv_hist}
+            if donate:
+                new_cache = _donated(cache, new_cache)
         else:
             c_out = R.causal_conv1d(params["conv"], main)
             y = R.rglru_scan(params["rglru"], c_out)
@@ -217,6 +233,8 @@ def _block_apply(kind: str, cfg: LMConfig, params, x, mode: str, cache, pos):
         if mode == "decode":
             y, new_cache = step(cell, h[:, 0], cache, cfg.n_heads)
             y = y[:, None, :]
+            if donate:
+                new_cache = _donated(cache, new_cache)
         else:
             y, state = scan(cell, h, cfg.n_heads)
             new_cache = state if mode == "prefill" else cache
@@ -329,7 +347,7 @@ class LM:
             x = torch.cat([pe, x], dim=1)
         return x
 
-    def _blocks(self, params, x, mode, cache, pos):
+    def _blocks(self, params, x, mode, cache, pos, donate=False):
         cfg = self.cfg
         names = [f"b{i}_{k}" for i, k in enumerate(cfg.pattern)]
         aux_total = torch.zeros((), dtype=_F32, device=x.device)
@@ -338,10 +356,11 @@ class LM:
             for name, kind in zip(names, cfg.pattern):
                 gp = take(params["blocks"][name], g)
                 gc = None if mode == "train" else take(cache[name], g)
-                x, nc, a = _block_apply(kind, cfg, gp, x, mode, gc, pos)
+                x, nc, a = _block_apply(kind, cfg, gp, x, mode, gc, pos,
+                                        donate)
                 group_caches[name].append(nc)
                 aux_total = aux_total + a
-        if mode == "train":
+        if mode == "train" or donate:   # donated: written in place
             new_cache = cache
         else:
             new_cache = {n: _stack(group_caches[n]) for n in names}
@@ -352,10 +371,11 @@ class LM:
             for i, kind in enumerate(self.tail):
                 name = f"t{i}_{kind}"
                 x, nc, a = _block_apply(kind, cfg, params["tail"][name], x,
-                                        mode, tail_cache.get(name), pos)
+                                        mode, tail_cache.get(name), pos,
+                                        donate)
                 new_tail[name] = nc
                 aux_total = aux_total + a
-            if mode != "train":
+            if mode != "train" and not donate:
                 new_cache["tail"] = new_tail
         return x, new_cache, aux_total
 
@@ -402,8 +422,9 @@ class LM:
         return self._logits(params, x[:, -1:])[:, 0], cache
 
     def decode_step(self, params, token: torch.Tensor, cache,
-                    pos: torch.Tensor):
-        """token (B,), pos (B,) -> (logits (B, V), new cache)."""
+                    pos: torch.Tensor, donate: bool = False):
+        """token (B,), pos (B,) -> (logits (B, V), new cache). ``donate``:
+        the step writes into ``cache`` and returns it (same values)."""
         x = params["embed"][token[:, None]].to(_BF16)
-        x, cache, _ = self._blocks(params, x, "decode", cache, pos)
+        x, cache, _ = self._blocks(params, x, "decode", cache, pos, donate)
         return self._logits(params, x)[:, 0], cache

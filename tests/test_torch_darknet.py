@@ -89,8 +89,13 @@ def test_spec_init_and_abstract_params():
     assert param_bytes(specs) == 32 * 2 + 3 * 2 + 2 * 4
     with pytest.raises(ValueError, match="rank"):
         spec.ParamSpec((2, 2), ("embed",))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        spec.abstract_params(specs)
+    ab = spec.abstract_params(specs)
+    assert (ab["a"].shape, ab["a"].dtype, ab["a"].device.type) == (
+        (4, 8), torch.bfloat16, "meta")
+    assert (ab["nest"]["o"].shape, ab["nest"]["o"].dtype) == ((2,),
+                                                             torch.float32)
+    assert (ab["nest"]["z"].shape, ab["nest"]["z"].dtype) == (
+        (3,), torch.bfloat16)
 
 
 def test_trained_checkpoint_matches_npz_and_reference_restore(ref):

@@ -334,8 +334,11 @@ def test_arch_configs_equal_reference(name):
         assert param_count(specs) == jparam_count(jspecs)
     for shape in jcommon.SHAPES:
         assert a.supports(shape) == ja.supports(shape)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        a.input_specs("train_4k")
+    got, want = a.input_specs("train_4k"), ja.input_specs("train_4k")
+    assert {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""),
+                v.device.type) for k, v in got.items()} == {
+        k: (tuple(v.shape), str(jnp.dtype(v.dtype)), "meta")
+        for k, v in want.items()}
 
 
 def test_h2o_danube_full_parameter_count():

@@ -40,7 +40,13 @@ those paths against its plain PyTorch version:
                1, 28, 152, 256, 400, 1024, 1025, 4096 and 16,000 on the chain's
                penalties and on keys that tie, wrap past INT32_MAX or hit
                INT32_MIN, and R = 0, the whole chain on 1-2 planes at W = 4, 31,
-               152, 400, 4096 and 16,000; the popcount window order's
+               152, 400, 4096 and 16,000 and at its two tiers' edges, W =
+               32, 33, 64, 576 and 1,024 (the register tier, beams 1-2)
+               and 1,025 (the wide tier), with beams 1-3 (one and two planes up to
+               W = 64, the plane counts alternating above) on rows of
+               random words, words with bit 31 set, z = 0, z = 1 and a
+               full row, starts in the zero region too; the popcount
+               window order's
                O1/O2 permutation (through ``ordering.descending_perm``)
                on tie-heavy float32 words with bit 31 set, int8 / uint8 /
                bf16 carriers, all-zero windows, zero tails, W = 1 to
@@ -102,7 +108,12 @@ those paths against its plain PyTorch version:
                simulated cycle per compression, K1 and chain launches,
                and from a second, profiled run (rows equal) the chain
                kernel's device time and each packetize and drain span's
-               idle share;
+               idle share; then every distinct chain call of the O3 sweep
+               (phase 6) and of this cell, by (P, R, W, beam), timed
+               through the chain kernel on its own stack (ms a call and
+               over the path's calls of that shape, the tier it takes),
+               and the device time of conv2-under-O3a's call and of the
+               cell's costliest from profiler windows;
 10. faults   - benchmarks/faults.py's cell whole (trained LeNet, glyph
                seed 11, 6x6_mc4, 24 packets a layer, fixed8, O0/O1/O2
                packetized on the card): the null-model pin (``simulate``
@@ -274,8 +285,11 @@ those paths against its plain PyTorch version:
                synthetic batch of the full DarkNet cell's four combos, 12
                lanes of 240 PE streams); the window order at conv2's
                (1600, 150)
-               float32 operands (stable and pattern), the chain
-               preamble at conv2 under O3a (2 x 1,600 x 152), the BT
+               float32 operands (stable and pattern), the chain at conv2
+               under O3a (2 x 1,600 x 152; the wide tier too, and the
+               first design's bound printed beside the recounted one) and at
+               the DarkNet compression cell's costliest chain call, the
+               chain preamble at conv2 under O3a, the BT
                counter at the no-NoC shape (total alone) and at (2^20, 8)
                (counts and total, and the total alone), its measure sums
                at both (with the host's time per measure), the window sort
@@ -744,6 +758,26 @@ def random_words(rng, shape):
     import torch
     return torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64)
                             .astype(np.uint32).view(np.int32)).cuda()
+
+
+def chain_edge_inputs(rng, planes: int, w: int):
+    """(P, 8, W) partitioned chain planes, (8,) live counts and (8, 8) start
+    positions on the card for the chain's edge cases, made as
+    tests/test_torch_chain_greedy.py makes them: random words with live
+    counts anywhere in [0, W] (rows 0-4, row 4 with bit 31 set in every
+    word), z = 0 (row 5), z = 1 (row 6: the later candidates are visited
+    or zero-region lanes) and a full row (row 7); the zero region's words
+    are 0, and starts fall anywhere in the row, the zero region too."""
+    import torch
+    u = rng.integers(0, 2**32, (planes, 8, w), dtype=np.uint64).astype(
+        np.uint32)
+    u[:, 4] |= np.uint32(0x80000000)
+    live = np.concatenate([rng.integers(0, w + 1, 5), [0, min(1, w), w]])
+    u[:, np.arange(w)[None, :] >= live[:, None]] = 0
+    start = rng.integers(0, w, (8, 8)).astype(np.int32)
+    return (torch.from_numpy(u.view(np.int32)).cuda(),
+            torch.from_numpy(live.astype(np.int32)).cuda(),
+            torch.from_numpy(start).cuda())
 
 
 # The window sort's shapes: the entry point's (512, 512), then rows that
@@ -2850,8 +2884,30 @@ def main() -> None:
             if not all(torch.equal(g, v) for g, v in zip(got, want)):
                 fail(f"chain kernel != plain version at ({r_}, 8, {w_}) "
                      f"with {planes} planes, beam {beam}")
-        print("  window sort, ordering unit, chain select and chain == "
-              "their plain versions", flush=True)
+        # The chain's two tiers at their edges: the register tier at W =
+        # 32, 33, 64, 576 (DarkNet's widest window) and 1,024 with beams 1
+        # and 2, the wide tier from 1,025 and at beam 3; beams 1-3, each call on chain_edge_inputs' rows
+        # (z = 0 and z = 1 among them, starts in the zero region too). Up
+        # to W = 64 on one and two planes; from 576, where the plain
+        # version's W - 1 steps cost most, each beam once a width, the
+        # plane counts alternating, so every pair still runs at a width of
+        # 576 or more.
+        for wi, w_ in enumerate((32, 33, 64, 576, 1024, 1025)):
+            pairs = ([(p_, b_) for p_ in (1, 2) for b_ in (1, 2, 3)]
+                     if w_ <= 64 else
+                     [(1 + (b_ + wi) % 2, b_) for b_ in (1, 2, 3)])
+            for planes, beam in pairs:
+                u, z, st = chain_edge_inputs(rng, planes, w_)
+                got = chain_greedy.chain_greedy(u, z, st, beam)
+                want = ref.chain_greedy_ref(u, z, st, beam)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, v) for g, v in zip(got, want)):
+                    fail(f"chain kernel ({chain_greedy.tier_of(w_, beam)} "
+                         f"tier) != plain version at (8, 8, {w_}) with "
+                         f"{planes} planes, beam {beam}")
+        print("  window sort, ordering unit, chain select and chain (both "
+              "tiers, W = 4 to 16,000, beams 1-3) == their plain versions",
+              flush=True)
         # The popcount window order on the trap cases: tie-heavy windows
         # (a pool of 16 words, six with bit 31 set, one zero; int8 from 9
         # values), narrow carriers (nbits 8 and 16), all-zero windows, the
@@ -3055,18 +3111,24 @@ def main() -> None:
     main_launches = {k.name: k.launches for k in ops.KERNELS}
     ordering.descending_perm = descending_perm
 
-    # Count the chain calls of the O3 sweep, and keep the largest one's
-    # stack (by P * R * W^2, the chain's work) for the timing phase.
-    chain_calls = []
+    # Count the chain calls of the O3 sweep (and, below, of the DarkNet
+    # compression cell) by shape, keeping each shape's first stack: the
+    # chain-calls phase times every shape, the timing phase the O3 sweep's
+    # largest (by P * R * W^2, the chain's work).
+    chain_shapes = {}     # (phase, P, R, W, beam, starts) -> [calls, stack]
     chain_windows = min_hamming._chain_windows
 
-    def counted_chain_windows(u, beam, starts):
-        chain_calls.append((u, beam, starts))
-        return chain_windows(u, beam, starts)
+    def recorded_chain_windows(phase):
+        def chain(u, beam, starts):
+            entry = chain_shapes.setdefault((phase, *u.shape, beam, starts),
+                                            [0, u])
+            entry[0] += 1
+            return chain_windows(u, beam, starts)
+        return chain
 
     ops.reset_launch_counts()
     with Phase("O3 path (full-width O0/O3/O3a sweep)"):
-        min_hamming._chain_windows = counted_chain_windows
+        min_hamming._chain_windows = recorded_chain_windows("O3")
         try:
             t0 = time.perf_counter()
             rep3 = run_sweep(SweepGrid(**AXES_O3, max_packets_per_layer=None),
@@ -3093,16 +3155,18 @@ def main() -> None:
               f"{st3['packetize_by_transform']}); simulate "
               f"{st3['simulate_s']:.3f} s ({st3['stepped_cycles']} "
               f"lane-cycles); wall {wall3:.3f} s", flush=True)
+        o3_calls = sum(n for (ph, *_), (n, _) in chain_shapes.items()
+                       if ph == "O3")
         report["o3"] = {"rows": rep3.rows, "stats": st3, "wall_s": wall3,
-                        "chain_calls": len(chain_calls)}
+                        "chain_calls": o3_calls}
     o3_launches = {k.name: k.launches for k in ops.KERNELS}
-    print(f"  {len(chain_calls)} chain calls; chain kernel launches "
+    print(f"  {o3_calls} chain calls; chain kernel launches "
           f"{o3_launches['chain_greedy']}, chain-preamble launches "
           f"{o3_launches['chain_inputs']}, chain-select launches "
           f"{o3_launches['chain_select']}", flush=True)
-    big_chain = max(chain_calls, key=lambda c: c[0].shape[0] * c[0].shape[1]
-                    * c[0].shape[2] ** 2)
-    del chain_calls
+    big_key = max((k for k in chain_shapes if k[0] == "O3"),
+                  key=lambda k: k[1] * k[2] * k[3] ** 2)
+    big_chain = (chain_shapes[big_key][1], *big_key[4:])
 
     with Phase("device idle share (O3 packetize, 8x8_mc4)"):
         # One mesh's O3 packetize as run_sweep runs it (its flit shapes come
@@ -3454,6 +3518,9 @@ def main() -> None:
         # streams x T flits x 17 int32 words.
         from repro_torch.noc.sweep import _QUANTIZERS
         from repro_torch.noc.traffic import payload_shapes, stream_lengths
+        # Every chain call of the phase counted by shape, the wire
+        # reckoning's shape probes too (restored once the cell has run).
+        min_hamming._chain_windows = recorded_chain_windows("compression")
         cvariants = [(wire.by_name(tr, tiebreak="pattern"),
                       _QUANTIZERS["fixed8"])
                      for tr in COMP_DARKNET["transforms"]]
@@ -3469,6 +3536,7 @@ def main() -> None:
         repc = run_sweep(SweepGrid(**COMP_DARKNET), lambda _name: dlayers)
         torch.cuda.synchronize()
         wallc = time.perf_counter() - t0
+        min_hamming._chain_windows = chain_windows
         comp_launches = {k.name: k.launches for k in ops.KERNELS}
         check_compression_cell(repc, "DarkNet compression cell", "darknet",
                                COMP_DARKNET_RECORD, COMP_DARKNET_OVERHEAD)
@@ -3548,6 +3616,85 @@ def main() -> None:
         report["compression_darknet"]["chain_device_ms"] = (
             chain_ms if spans else None)
         report["compression_darknet"]["idle"] = idle_c
+
+    with Phase("chain calls (the O3 sweep's and the DarkNet compression "
+               "cell's, by shape)"):
+        # Every distinct chain call of the two paths on its first call's own
+        # stack: kernel ms a call (events over 3 launches) and over the
+        # path's calls of that shape, and the tier the shape takes. Then
+        # the device time of conv2-under-O3a's call and of the compression
+        # cell's costliest from profiler windows here: from the faults
+        # phase on the windows record no device activity (PERF.md §7).
+        chain_rows = []
+        for key in sorted(chain_shapes, key=lambda k: (k[0] != "O3", k[1:])):
+            path, p_, r_, w_, beam, starts = key
+            _, q, z, _, st = ops.chain_inputs(chain_shapes[key][1], starts)
+            q, st = words32(q).contiguous(), st.to(torch.int32).contiguous()
+            ms = cuda_ms(lambda: chain_greedy.chain_greedy(q, z, st, beam), 3)
+            n = chain_shapes[key][0]
+            chain_rows.append(dict(
+                path=path, planes=p_, windows=r_, width=w_, beam=beam,
+                starts=starts, calls=n, tier=chain_greedy.tier_of(w_, beam),
+                ms=ms, total_ms=n * ms))
+        print(f"  [{card}] {'path':11s} {'P':>2s} {'R':>6s} {'W':>5s} "
+              f"{'beam':>4s} {'calls':>5s} {'tier':8s} {'ms a call':>10s} "
+              f"{'ms in all':>10s}", flush=True)
+        for c in chain_rows:
+            print(f"  [{card}] {c['path']:11s} {c['planes']:2d} "
+                  f"{c['windows']:6d} {c['width']:5d} {c['beam']:4d} "
+                  f"{c['calls']:5d} {c['tier']:8s} {c['ms']:10.4f} "
+                  f"{c['total_ms']:10.3f}", flush=True)
+        for path in ("O3", "compression"):
+            mine = [c for c in chain_rows if c["path"] == path]
+            print(f"  [{card}] {path}: {sum(c['calls'] for c in mine)} chain "
+                  f"calls, {sum(c['total_ms'] for c in mine):.3f} ms of "
+                  "kernel", flush=True)
+        dark = max((c for c in chain_rows if c["path"] == "compression"),
+                   key=lambda c: c["ms"])
+        dark_chain = (chain_shapes[("compression", dark["planes"],
+                                    dark["windows"], dark["width"],
+                                    dark["beam"], dark["starts"])][1],
+                      dark["beam"], dark["starts"])
+        # Device ms a launch: the chain kernel's own time in one profiler
+        # window of 10 launches (key_averages, as the compression cell's
+        # chain time is read), and the union of the window's device spans,
+        # each over the launches the window recorded.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        chain_dev_ms, chain_span_ms = {}, {}
+        for label, (u, beam, starts) in (("chain_greedy", big_chain),
+                                         ("chain_greedy/darknet",
+                                          dark_chain)):
+            _, q, z, _, st = ops.chain_inputs(u, starts)
+            q, st = words32(q).contiguous(), st.to(torch.int32).contiguous()
+            chain_greedy.chain_greedy(q, z, st, beam)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    chain_greedy.chain_greedy(q, z, st, beam)
+                torch.cuda.synchronize()
+            seen = [(e.self_device_time_total, e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and "chain_greedy" in e.key]
+            n_seen = sum(c for _, c in seen)
+            spans = device_spans(prof)
+            # A kernel's own time over the launches the window recorded (a
+            # window late in a run has been seen to drop some).
+            chain_dev_ms[label] = (sum(t for t, _ in seen) / 1e3 / n_seen
+                                   if n_seen else None)
+            chain_span_ms[label] = (busy_us(spans) / 1e3 / n_seen
+                                    if n_seen else None)
+            print(f"  [{card}] {label} at {tuple(q.shape)} x {starts} "
+                  f"starts: device ms a launch "
+                  + ("not measured" if not n_seen else
+                     f"{chain_dev_ms[label]:.4f} over the {n_seen} of 10 "
+                     f"launches recorded (the window's busy spans "
+                     f"{chain_span_ms[label]:.4f} a launch recorded)"),
+                  flush=True)
+        report["chain_calls"] = {"rows": chain_rows, "device_ms": chain_dev_ms,
+                                 "busy_span_ms": chain_span_ms}
 
     with Phase("compression cell (LeNet, 6x6_mc4, 40 packets a layer)"):
         gen = torch.Generator(device="cuda").manual_seed(11)
@@ -4285,41 +4432,69 @@ def main() -> None:
             library="none: torch has no popcount op", shape=[r_, w_, 2]))
         # The chain kernel on the O3 sweep's largest chain call (by P * R *
         # W^2: conv2 under O3a, 1600 windows x 8 starts of 152 lanes, two
-        # planes), on that call's own partitioned planes, live counts and
-        # starts. Operations per step and lane: the distance 2P + 3, each
-        # beam pass 2; per beam candidate and live lane, the lookahead
-        # 2P + 3. Bytes: planes, live counts and starts in; orders and
-        # costs out.
-        u, beam, starts = big_chain
-        _, q, z, _, st = ops.chain_inputs(u, starts)
-        q, st = words32(q).contiguous(), st.to(torch.int32).contiguous()
-        got = chain_greedy.chain_greedy(q, z, st, beam)
-        want = ref.chain_greedy_ref(q, z, st, beam)
-        err = max_err(zip(got, want))
+        # planes) and on the DarkNet compression cell's costliest (by
+        # kernel ms in the chain-calls phase), each on its call's own
+        # partitioned planes, live counts and starts; at conv2 also the wide
+        # tier (the first design) in this call. Operations, the recounted
+        # bound (csrc/chain_greedy.cu's note), the least a step needs: beam
+        # distance passes over the live lanes (P XORs, P popcounts and P - 1
+        # adds a lane; a zero-region lane's distance is the candidate's own
+        # popcount, 2P - 1 once), a compare a live lane for each lookahead
+        # minimum, and W + (beam - 1) * ceil(log2 W) compares for the beam
+        # selection; over ALU_OPS_PER_S, the float32 rate every kernel's
+        # operations are held to. Bytes: planes, live counts and starts in;
+        # orders and costs out. Device ms: the chain-calls phase's profiler
+        # windows.
+        for label, (u, beam, starts) in (("chain_greedy", big_chain),
+                                         ("chain_greedy/darknet",
+                                          dark_chain)):
+            _, q, z, _, st = ops.chain_inputs(u, starts)
+            q, st = words32(q).contiguous(), st.to(torch.int32).contiguous()
+            err = max_err(zip(chain_greedy.chain_greedy(q, z, st, beam),
+                              ref.chain_greedy_ref(q, z, st, beam)))
 
-        def k7():
-            return chain_greedy.chain_greedy(q, z, st, beam)
+            def k7(q=q, z=z, st=st, beam=beam, tier=None):
+                return chain_greedy.chain_greedy(q, z, st, beam, tier=tier)
 
-        ms = cuda_ms(k7, 20)
-        kl = launch_ms(k7, 20)
-        dk = device_ms(k7, 20)
-        pms = cuda_ms(lambda: ref.chain_greedy_ref(q, z, st, beam), 2)
-        p_, r_, w_ = q.shape
-        s_ = st.shape[1]
-        live = int(z.clamp(max=w_).sum())
-        bound, by = bound_of(
-            4 * (p_ * r_ * w_ + r_ + 2 * r_ * s_ + r_ * s_ * w_),
-            (w_ - 1) * s_ * (r_ * w_ * (2 * p_ + 3 + 2 * beam)
-                             + beam * live * (2 * p_ + 3)))
-        kernels.append(dict(
-            name="chain_greedy", route="cuda",
-            source="src/repro_torch/kernels/csrc/chain_greedy.cu",
-            replaces="src/repro/kernels/min_hamming.py:135",
-            launches=launches["chain_greedy"], max_abs_err=err, ms=ms,
-            launch_ms=kl, device_ms=dk,
-            plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
-            library="none: torch has no popcount op",
-            shape=[p_, r_, s_, w_, beam], live=live))
+            def p7(q=q, z=z, st=st, beam=beam):
+                return ref.chain_greedy_ref(q, z, st, beam)
+
+            p_, r_, w_ = q.shape
+            s_ = st.shape[1]
+            live = int(z.clamp(max=w_).sum())
+            nbytes = 4 * (p_ * r_ * w_ + r_ + 2 * r_ * s_ + r_ * s_ * w_)
+            select = w_ + (beam - 1) * max(w_ - 1, 0).bit_length()
+            bound, by = bound_of(nbytes, (w_ - 1) * s_ * (
+                beam * (3 * p_ * live + (2 * p_ - 1) * r_) + r_ * select))
+            small = label == "chain_greedy"
+            entry = dict(
+                name=label, route="cuda",
+                source="src/repro_torch/kernels/csrc/chain_greedy.cu",
+                replaces="src/repro/kernels/min_hamming.py:135",
+                launches=launches["chain_greedy"], max_abs_err=err,
+                ms=cuda_ms(k7, 20 if small else 5),
+                launch_ms=launch_ms(k7, 20 if small else 5),
+                device_ms=chain_dev_ms[label],
+                plain_ms=cuda_ms(p7, 2 if small else 1), bound_ms=bound,
+                bound_by=by, library_ms=None,
+                library="none: torch has no popcount op",
+                shape=[p_, r_, s_, w_, beam], live=live,
+                tier=chain_greedy.tier_of(w_, beam))
+            if small:
+                # The first design's count: the distance 2P + 3 and each beam
+                # pass 2 a lane, each candidate's lookahead 2P + 3 a live
+                # lane.
+                old, _ = bound_of(nbytes, (w_ - 1) * s_ * (
+                    r_ * w_ * (2 * p_ + 3 + 2 * beam)
+                    + beam * live * (2 * p_ + 3)))
+                entry["bound_ms_old_count"] = old
+                entry["wide_tier_ms"] = cuda_ms(
+                    lambda: k7(tier="wide"), 20)
+                print(f"  chain at {entry['shape']}: bound recounted "
+                      f"{bound:.4f} ms ({by}; the first design's count: "
+                      f"{old:.4f} ms); register tier {entry['ms']:.4f} ms, "
+                      f"wide tier {entry['wide_tier_ms']:.4f} ms", flush=True)
+            kernels.append(entry)
         # The window order at conv2's (1600, 150) float32 operands, both
         # tiebreaks (one shared launch counter). Bytes: the words read once,
         # the int64 permutation written once; operations: ~16 a value and
@@ -4350,6 +4525,7 @@ def main() -> None:
         # O3a: 2 x 1,600 x 152). Bytes: the planes read once; part (int64),
         # q, z, cid and the int64 starts written once; operations ~(2P + 16)
         # a value.
+        u, _, starts = big_chain
         p_, r_, w_ = u.shape
 
         def k8():

@@ -8,9 +8,12 @@ window, on the same numpy inputs; integers compared exactly.
   (so visited or zero-region lanes become candidates) and words with bit
   31 set;
 * the kernel's wrapper refuses CPU tensors and rows wider than the int32
-  score encoding allows, naming the width;
+  score encoding allows, naming the width, and picks the register tier
+  (W <= 1,024, beam <= 2) or the wide tier from the shape alone
+  (``tier_of``), refusing the register tier for a shape beyond it;
 * on a CUDA card (marked ``cuda``) the kernel equals the plain version at
-  W up to 16,000.
+  W up to 16,000, both tiers at their edges (W = 32, 33, 576, 1,024 and
+  1,025), and the two tiers equal each other where both take a shape.
 """
 import functools
 
@@ -69,6 +72,11 @@ def _want(u, z, start, beam):
     (1, 2, 31, 8, "allzero"),   # z = 0 everywhere
     (2, 2, 152, 8, "random"),   # conv2's padded window
     (1, 3, 152, 8, "bit31"),
+    (2, 2, 32, 8, "random"),    # the register tier's one-slot edge
+    (1, 3, 33, 8, "zlow"),      # a second slot of one live lane
+    (2, 1, 33, 8, "bit31"),
+    (1, 2, 64, 8, "random"),    # two full slots
+    (2, 3, 64, 8, "allzero"),
 ])
 def test_chain_greedy_matches_reference(planes, beam, w, s, kind):
     u, z, start = _inputs(planes * 1000 + w * 10 + beam, planes, 4, w, s,
@@ -110,6 +118,39 @@ def test_chain_greedy_wrapper_refuses_cpu_tensors_and_wide_rows():
         kgreedy.chain_greedy(q[None], z, st, 2)
 
 
+@pytest.mark.parametrize("w,beam,tier", [
+    (1, 1, "register"),
+    (32, 1, "register"), (32, 2, "register"),
+    (32, 3, "wide"),            # above the register tier's beam
+    (33, 1, "register"), (33, 2, "register"), (33, 3, "wide"),
+    (1024, 1, "register"), (1024, 2, "register"), (1024, 3, "wide"),
+    (1024, 4, "wide"),
+    (1025, 1, "wide"), (1025, 2, "wide"), (1025, 3, "wide"),
+    (16000, 1, "wide"), (16000, 2, "wide"), (16000, 3, "wide"),
+    (16000, 4, "wide"),
+])
+def test_chain_greedy_tier_of(w, beam, tier):
+    """The tier is a function of (W, beam) alone: the register tier up to
+    1,024 lanes and beam 2, the wide tier past either."""
+    assert kgreedy.tier_of(w, beam) == tier
+
+
+def test_chain_greedy_wrapper_refuses_register_tier_beyond_its_shape():
+    """A register tier asked for past its shape is refused, naming it,
+    before any tensor reaches the card; an unknown tier too."""
+    z = torch.zeros((1,), dtype=torch.int32)
+    st = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="W <= 1024"):
+        kgreedy.chain_greedy(torch.zeros((1, 1, 1025), dtype=torch.int32),
+                             z, st, 2, tier="register")
+    with pytest.raises(ValueError, match="beam <= 2"):
+        kgreedy.chain_greedy(torch.zeros((1, 1, 64), dtype=torch.int32),
+                             z, st, 3, tier="register")
+    with pytest.raises(ValueError, match="tier must be one of"):
+        kgreedy.chain_greedy(torch.zeros((1, 1, 64), dtype=torch.int32),
+                             z, st, 2, tier="shared")
+
+
 # --------------------------------------------------------------------------
 # On the card: the kernel against its plain version, exact equality.
 
@@ -120,7 +161,8 @@ cuda = pytest.mark.skipif(torch.cuda.device_count() < 1,
 @pytest.mark.cuda
 @cuda
 @pytest.mark.parametrize("planes,beam", [(1, 1), (1, 2), (2, 1), (2, 2)])
-@pytest.mark.parametrize("w", [4, 31, 152, 400, 4096, 16000])
+@pytest.mark.parametrize("w", [4, 31, 32, 33, 152, 400, 576, 1024, 1025,
+                               4096, 16000])
 def test_chain_greedy_kernel_equals_plain(w, planes, beam):
     r = 2 if w >= 4096 else 64
     u, z, start = _inputs(w + planes + beam, planes, r, w, 8, "random")
@@ -133,3 +175,23 @@ def test_chain_greedy_kernel_equals_plain(w, planes, beam):
     assert kgreedy.KERNEL.launches == before + 1
     for g, v in zip(got, want):
         assert torch.equal(g, v)
+
+
+@pytest.mark.cuda
+@cuda
+@pytest.mark.parametrize("beam", [1, 2, 3])
+@pytest.mark.parametrize("planes,w,kind", [(1, 33, "zlow"), (2, 152, "bit31"),
+                                           (2, 576, "random"),
+                                           (1, 1024, "allzero")])
+def test_chain_greedy_tiers_agree(planes, w, kind, beam):
+    """Each tier that takes a shape equals the plain version: the wide
+    tier at every beam, the register tier up to its beam of 2."""
+    u, z, start = _inputs(w * 7 + planes + beam, planes, 48, w, 8, kind)
+    q = torch.from_numpy(u.view(np.int32)).cuda()
+    zt, st = torch.from_numpy(z).cuda(), torch.from_numpy(start).cuda()
+    want = ref.chain_greedy_ref(q, zt, st, beam)
+    for tier in sorted({"wide", kgreedy.tier_of(w, beam)}):
+        got = kgreedy.chain_greedy(q, zt, st, beam, tier=tier)
+        torch.cuda.synchronize()
+        for g, v in zip(got, want):
+            assert torch.equal(g, v), tier
